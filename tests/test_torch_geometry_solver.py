@@ -24,6 +24,11 @@ from vloam_tpu_torch.geometry import so3 as tso3
 from vloam_tpu_torch.solver import eig3 as teig3
 from vloam_tpu_torch.solver import lm as tlm
 
+# One intra-op thread: pytest-xdist workers share the cores, and torch's
+# OpenMP pool stalls each small parallel CPU op when they are
+# oversubscribed.
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.asarray(x))

@@ -19,7 +19,13 @@ needs JAX.)
   of tests/test_golden_regression.py (the order of the LM and map sums
   differs between the devices).
 - The engine on the card gives identical rows with TF32 / reduced-precision
-  matmuls allowed and with them off.
+  matmuls allowed and with them off; so does the combined engine
+  (VloamEngine), whose matcher is the path's one cuBLAS product (run in
+  float64, which TF32 never touches).
+- K3 zncc_describe: within 1e-5 of zncc_describe_plain at the main path's
+  [375, 1242] image and 2048 keypoints, p = 24 and 16, with zero rows
+  (the 1e-3 floor) in the same places, on keypoints at the image's corners
+  (clipping) and on a constant patch.
 """
 
 import numpy as np
@@ -139,10 +145,26 @@ def test_xyz_engine_on_card_matches_cpu(cuda):
         res[str(dev)] = (unpack_outputs(_run_engine(cfg, scans, dev)),
                          dict(kernels.LAUNCHES))
     (cpu, n_cpu), (gpu, n_gpu) = res["cpu"], res["cuda"]
-    assert n_cpu == {"select_rings": 0, "ring_min2": 0}
-    assert n_gpu == {"select_rings": 4, "ring_min2": 16}
+    assert n_cpu == {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0}
+    assert n_gpu == {"select_rings": 4, "ring_min2": 16, "zncc_describe": 0}
     np.testing.assert_allclose(gpu["t_w_lo"], cpu["t_w_lo"], atol=2e-2)
     np.testing.assert_allclose(gpu["t_w_mo"], cpu["t_w_mo"], atol=3e-2)
+
+
+def _tf32_on_and_off(run):
+    """run() with TF32 / "medium" matmul precision off, then on."""
+    off = run()
+    precision = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("medium")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        on = run()
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return off, on
 
 
 def test_engine_on_card_ignores_tf32_settings(cuda):
@@ -153,16 +175,81 @@ def test_engine_on_card_ignores_tf32_settings(cuda):
 
     cfg = tiny_test_profile()
     scans = _xyz_drive(cfg)
-    off = _run_engine(cfg, scans, cuda)
-    precision = torch.get_float32_matmul_precision()
-    try:
-        torch.set_float32_matmul_precision("medium")
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
-        on = _run_engine(cfg, scans, cuda)
-    finally:
-        torch.set_float32_matmul_precision(precision)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    off, on = _tf32_on_and_off(lambda: _run_engine(cfg, scans, cuda))
     assert np.isfinite(off).all()
     np.testing.assert_array_equal(on, off)
+
+
+def _vloam_drive(n=4, w=320, h=96, n_scans=16):
+    """A small polar camera + LiDAR drive and its calibration."""
+    from vloam_tpu_torch.data import synthetic
+
+    scene = synthetic.urban_scene(2)
+    K, P_rect0, _, velo_T_cam = synthetic.default_cam_calib(w, h)
+
+    class Calib:
+        pass
+
+    calib = Calib()
+    calib.K = K
+    calib.P_velo_to_img = P_rect0 @ np.linalg.inv(velo_T_cam)
+    calib.imu_T_velo = np.eye(4)
+    calib.imu_T_cam0 = velo_T_cam
+    poses = synthetic.drive_trajectory(n, speed=1.0, yaw_rate=0.015)
+    frames = [(synthetic.simulate_scan_polar(scene, T, n_scans=n_scans,
+                                             n_azimuth=900, seed=k),
+               synthetic.render_camera(scene, T @ velo_T_cam, K, w, h))
+              for k, T in enumerate(poses)]
+    return calib, frames
+
+
+def test_vloam_engine_on_card_ignores_tf32_settings(cuda):
+    """The combined engine's rows are bit-identical with TF32 allowed: its
+    one cuBLAS product (the matcher's similarity) runs in float64."""
+    from vloam_tpu_torch.config import tiny_test_profile
+    from vloam_tpu_torch.vloam_step import VloamEngine
+
+    cfg = tiny_test_profile().replace(detach_VO_LO=False)
+    calib, frames = _vloam_drive()
+
+    def run():
+        eng = VloamEngine(cfg, calib, chunk=2, device=cuda)
+        for r, img in frames:
+            eng.push_polar(r, img)
+        return eng.finish()
+
+    kernels.reset_launches()
+    off, on = _tf32_on_and_off(run)
+    assert kernels.LAUNCHES == {"select_rings": 8, "ring_min2": 32,
+                                "zncc_describe": 8}
+    assert np.isfinite(off).all() and (off[1:, 31] > 0).all()
+    np.testing.assert_array_equal(on, off)
+
+
+@pytest.mark.parametrize("p", [24, 16])
+def test_zncc_describe_kernel_matches_plain(cuda, p):
+    """K3 at the main path's shape: keypoints from detect_keypoints on a
+    rendered 1242 x 375 frame, plus crafted rows at the corners (clipped
+    patches) and on a constant patch (the floor)."""
+    from vloam_tpu_torch.config import kitti_hdl64
+    from vloam_tpu_torch.vision import features as tf
+
+    calib, frames = _vloam_drive(n=1, w=1242, h=375)
+    img = torch.from_numpy(frames[0][1]).to(cuda)
+    img[300:, :64] = 0.25  # a constant patch at the bottom-left
+    vo = kitti_hdl64().vo
+    xy, _, mask = tf.detect_keypoints(img, vo)
+    assert int(mask.sum()) > 500
+    crafted = torch.tensor([[0.0, 0.0], [1241.9, 0.0], [0.0, 374.9],
+                            [1241.9, 374.9], [20.0, 350.0], [-3.5, 7.2],
+                            [620.4, 187.6], [5.0, 200.0]], device=cuda)
+    xy = torch.cat([xy[:-8], crafted]).contiguous()
+    n0 = kernels.LAUNCHES["zncc_describe"]
+    got = tf.zncc_describe(img, xy, p)
+    want = tf.zncc_describe_plain(img, xy, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["zncc_describe"] == n0 + 1
+    assert got.shape == (2048, p * p)
+    zero_g, zero_w = (got == 0).all(1), (want == 0).all(1)
+    assert torch.equal(zero_g, zero_w) and bool(zero_g[-4])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

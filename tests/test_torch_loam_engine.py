@@ -56,6 +56,11 @@ from vloam_tpu_torch.lidar.types import FeatureCloud, ScanFeatures
 
 from test_pipeline import small_cfg
 
+# One intra-op thread: pytest-xdist workers share the cores, and torch's
+# OpenMP pool stalls each small parallel CPU op when they are
+# oversubscribed.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden" / "short_drive_lo_mo.npy"
 CFG = small_cfg()

@@ -21,6 +21,11 @@ import torch
 from vloam_tpu.lidar import ring_assoc as jra
 from vloam_tpu_torch.lidar import ring_assoc as tra
 
+# One intra-op thread: pytest-xdist workers share the cores, and torch's
+# OpenMP pool stalls each small parallel CPU op when they are
+# oversubscribed.
+torch.set_num_threads(1)
+
 
 def _slab(rng, S=8, C=128, live=0.7):
     xyz = np.full((S, C, 3), jra.SENTINEL, np.float32)

@@ -30,6 +30,11 @@ from vloam_tpu.data import synthetic
 from vloam_tpu.lidar import scan_registration as jsr
 from vloam_tpu_torch.lidar import scan_registration as tsr
 
+# One intra-op thread: pytest-xdist workers share the cores, and torch's
+# OpenMP pool stalls each small parallel CPU op when they are
+# oversubscribed.
+torch.set_num_threads(1)
+
 CFG = tiny_test_profile()
 N_AZ = 450
 

@@ -18,6 +18,11 @@ from vloam_tpu.lidar import voxel as jv
 from vloam_tpu_torch.lidar import gridmap as tg
 from vloam_tpu_torch.lidar import voxel as tv
 
+# One intra-op thread: pytest-xdist workers share the cores, and torch's
+# OpenMP pool stalls each small parallel CPU op when they are
+# oversubscribed.
+torch.set_num_threads(1)
+
 I32 = np.iinfo(np.int32)
 
 

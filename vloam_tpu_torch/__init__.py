@@ -1,10 +1,13 @@
-"""PyTorch + CUDA port of the vloam_tpu LiDAR-only LOAM engine.
+"""PyTorch + CUDA port of the vloam_tpu engines: LiDAR-only LOAM
+(lidar/loam_step.py, LoamEngine) and combined camera + LiDAR VLOAM
+(vloam_step.py, VloamEngine).
 
-The package mirrors vloam_tpu's layout (geometry/, solver/, lidar/, data/,
-config.py) so each module's JAX counterpart sits at the same relative path.
-It imports torch, numpy and scipy, and nothing of jax or of the JAX package:
-config.py and data/synthetic.py are its own copies of the LiDAR parts of
-vloam_tpu.config and vloam_tpu.data.synthetic, tested equal to them.
+The package mirrors vloam_tpu's layout (geometry/, solver/, lidar/, vision/,
+fusion/, data/, config.py, vloam_step.py) so each module's JAX counterpart
+sits at the same relative path. It imports torch, numpy and scipy, and
+nothing of jax or of the JAX package: config.py and data/synthetic.py are
+its own copies of the parts of vloam_tpu.config and vloam_tpu.data.synthetic
+that it needs, tested equal to them.
 
 Hand-written Hopper kernels live in kernels/ (CUDA C++ built with nvcc at
 first use). Every kernel wrapper takes its plain PyTorch version only for

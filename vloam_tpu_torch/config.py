@@ -1,7 +1,8 @@
-"""Configuration of the LiDAR-only LOAM path: the fields of the LiDAR
-sections of vloam_tpu/config.py that the port reads, with the same names and
-defaults (the port's own copy, so that the port and its smoke run import
-nothing of the JAX package).
+"""Configuration of the ported paths: the fields of vloam_tpu/config.py that
+the port reads (the LiDAR sections, the visual odometry section and the
+pipeline's VO<->LO coupling flag), with the same names and defaults (the
+port's own copy, so that the port and its smoke run import nothing of the
+JAX package).
 
 Algorithm parameters follow the reference launch file
 (src/lidar_odometry_mapping/launch/loam_velodyne_HDL_64_kitti.launch:3-16)
@@ -12,6 +13,7 @@ names works as a config: the tests pass the JAX package's dataclasses.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 
@@ -96,19 +98,93 @@ class LaserMappingConfig:
 
 
 @dataclass(frozen=True)
-class PipelineConfig:
-    """The LiDAR-only engine's configuration tree."""
+class VisualOdometryConfig:
+    """DEMO-style depth-enhanced VO (reference visual_odometry.cpp,
+    image_util.cpp, point_cloud_util.cpp). The port runs the default
+    detector / descriptor / matcher; the other values of the option fields
+    raise NotImplementedError where they would be read."""
 
+    img_width: int = 1242
+    img_height: int = 375
+    detector: str = "shi_tomasi"  # | fast | orb | brisk | sift | akaze
+    descriptor: str = "zncc"  # | orb
+    matcher: str = "bf"  # | flann
+    match_select: str = "knn"  # ratio test | nn (best match only)
+    fast_threshold: float = 100.0 / 255.0  # image_util.cpp:39
+    max_keypoints: int = 2048
+    shi_tomasi_block: int = 5  # image_util.cpp:15
+    shi_tomasi_quality: float = 0.01
+    shi_tomasi_min_distance: float = 7.5  # block * 1.5 (image_util.cpp:18)
+    match_ratio: float = 0.8  # KNN ratio test (image_util.cpp:278)
+    descriptor_patch: int = 24  # ZNCC patch side (kernel K3)
+    optical_flow_match: bool = False  # vloam_main.launch:10
+    flow_window: int = 15
+    flow_levels: int = 3
+    flow_iterations: int = 10
+    remove_VO_outlier: float = 100.0  # px gate, vloam_main.launch:6
+    reset_VO_to_identity: bool = False  # vloam_main.launch:5
+    clahe: bool = False  # vloam_main.launch:8
+    keypoint_nms: bool = False  # vloam_main.launch:7
+    nms_bucket: int = 100
+    nms_max_total: int = 400
+    downsample_grid_size: int = 5  # point_cloud_util.h:26
+    depth_search_radius: int = 2  # point_cloud_util.h:35
+    min_depth_neighbors: int = 10  # point_cloud_util.cpp:337
+    # reject depth queries whose 3 nearest buckets span more than this many
+    # metres (0 = the reference's behaviour)
+    max_depth_spread: float = 0.0
+    min_depth: float = 0.1  # projection front filter
+    huber_delta: float = 0.05
+    max_iterations: int = 24  # VO LM iterations per frame
+    max_matches: int = 2048
+    # a VO solve with fewer matches does not seed LO
+    min_vo_matches: int = 20
+    lowtex_fallback: bool = False
+    # polar ingest: the forward fraction of azimuth columns decoded for the
+    # camera depth grid (1/3 = +-60 deg; the KITTI camera's half-FOV is ~41)
+    polar_fov_fraction: float = 1.0 / 3.0
+    # quadratic-peak subpixel corners, kept in the VO residuals; False is the
+    # reference's int-truncation quirk (visual_odometry.cpp:283-307)
+    subpixel: bool = True
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """The engines' configuration tree."""
+
+    # True: VO and LO run side by side; False: each LO solve is seeded from
+    # the same frame's VO (reference vloam_main.launch:4)
+    detach_VO_LO: bool = True
     lidar: LidarProfile = field(default_factory=LidarProfile)
     scanreg: ScanRegistrationConfig = field(
         default_factory=ScanRegistrationConfig)
     lo: LaserOdometryConfig = field(default_factory=LaserOdometryConfig)
     mapping: LaserMappingConfig = field(default_factory=LaserMappingConfig)
+    vo: VisualOdometryConfig = field(default_factory=VisualOdometryConfig)
+
+    def replace(self, **kw) -> "PipelineConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def kitti_hdl64() -> PipelineConfig:
     """The KITTI HDL-64 profile at full width."""
     return PipelineConfig()
+
+
+def reference_exact() -> PipelineConfig:
+    """The KITTI profile with the accuracy-motivated VO defaults rolled back
+    to the reference's values (vloam_tpu/config.py:240-265): 1024
+    keypoints at quality 0.03, Huber 0.1, a 16 px ZNCC patch and the
+    int-truncation quirk."""
+    return PipelineConfig(
+        vo=VisualOdometryConfig(
+            max_keypoints=1024,
+            shi_tomasi_quality=0.03,
+            huber_delta=0.1,
+            descriptor_patch=16,
+            subpixel=False,
+        ),
+    )
 
 
 def tiny_test_profile() -> PipelineConfig:
@@ -122,4 +198,6 @@ def tiny_test_profile() -> PipelineConfig:
                                    map_n_buckets=1 << 13,
                                    corner_bucket_cap=16, surf_bucket_cap=16,
                                    corner_stack_cap=1024, surf_stack_cap=2048),
+        vo=VisualOdometryConfig(img_width=320, img_height=96, max_keypoints=256,
+                                max_matches=512),
     )

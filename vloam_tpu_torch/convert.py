@@ -1,11 +1,13 @@
 """State carried between the JAX reference and the port.
 
 The system has no weights; its recurrent state (ring slabs, poses, both
-map grids, the frame counter) is what a run carries. These helpers move a
-LoamState across by field name, so this module needs neither package's
-classes from the other side: a JAX LoamState whose leaves were made numpy
-(``jax.tree.map(np.asarray, state)``) goes in, the port's LoamState comes
-out, and the reverse gives the port's LoamState with numpy leaves.
+map grids, the frame counter, and in the combined engine the previous
+frame's keypoints, descriptors, image and depth grid) is what a run carries.
+These helpers move a LoamState, or a VloamEngine's (VisionLoState,
+MapState) pair, across by field name, so this module needs neither
+package's classes from the other side: a JAX state whose leaves were made
+numpy (``jax.tree.map(np.asarray, state)``) goes in, the port's state comes
+out, and the reverse gives the port's state with numpy leaves.
 """
 
 from __future__ import annotations
@@ -17,8 +19,13 @@ from .lidar.gridmap import FeatureGrid
 from .lidar.loam_step import LoamState
 from .lidar.mapping import GridMap
 from .lidar.ring_assoc import RingSlab
+from .vision.depth_map import DepthGrid
+from .vloam_step import MapState, VisionLoState, VisionState
 
 _POSES = ("q_f2f", "t_f2f", "q_w", "t_w", "q_wmap_wodom", "t_wmap_wodom")
+_LO_POSES = ("q_f2f", "t_f2f", "q_w", "t_w", "frame_idx")
+_MAP_POSES = ("q_wmap_wodom", "t_wmap_wodom", "frame_idx")
+_VISION = ("prev_kp", "prev_kp_mask", "prev_desc", "prev_img")
 
 
 def _grid_from(g, device) -> FeatureGrid:
@@ -61,3 +68,44 @@ def loam_state_to_numpy(st: LoamState) -> LoamState:
         frame_idx=n(st.frame_idx),
         **{k: n(getattr(st, k)) for k in _POSES},
     )
+
+
+def _cube_from(cube, device) -> GridMap:
+    return GridMap(corner=_grid_from(cube.corner, device),
+                   surf=_grid_from(cube.surf, device),
+                   center=torch.tensor(np.asarray(cube.center), device=device))
+
+
+def vloam_state_from_numpy(tree, device) -> tuple[VisionLoState, MapState]:
+    """A VloamEngine state pair (VisionLoState, MapState) with array leaves
+    (JAX reference field names) -> the port's pair on `device`."""
+    def t(x):
+        return torch.tensor(np.asarray(x), device=device)
+
+    vl, ms = tree
+    v = vl.vision
+    vision = VisionState(
+        prev_grid=DepthGrid(*(t(getattr(v.prev_grid, f))
+                              for f in DepthGrid._fields)),
+        **{k: t(getattr(v, k)) for k in _VISION})
+    vstate = VisionLoState(
+        vision=vision, corner_last=RingSlab(t(vl.corner_last.xyz)),
+        surf_last=RingSlab(t(vl.surf_last.xyz)),
+        **{k: t(getattr(vl, k)) for k in _LO_POSES})
+    mstate = MapState(cube=_cube_from(ms.cube, device),
+                      **{k: t(getattr(ms, k)) for k in _MAP_POSES})
+    return vstate, mstate
+
+
+def vloam_state_to_numpy(vstate: VisionLoState, mstate: MapState):
+    """The port's (VisionLoState, MapState) -> the same trees with numpy
+    leaves (field for field the JAX reference's layout)."""
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    def tree(x):
+        if isinstance(x, torch.Tensor):
+            return n(x)
+        return type(x)(*(tree(y) for y in x))
+
+    return tree(vstate), tree(mstate)

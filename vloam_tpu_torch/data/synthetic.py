@@ -1,13 +1,16 @@
-"""Synthetic KITTI-like street scene and HDL-64 raycaster (host-side numpy).
+"""Synthetic KITTI-like street scene, HDL-64 raycaster and pinhole camera
+renderer (host-side numpy).
 
-The LiDAR part of vloam_tpu/data/synthetic.py, with the same arithmetic, so
-the same seeds give bit-identical scans (tests/test_torch_loam_engine.py
-holds the two equal). The port keeps its own copy so that it, and
+The urban-scene, LiDAR and camera parts of vloam_tpu/data/synthetic.py, with
+the same arithmetic, so the same seeds give bit-identical scans and images
+(tests/test_torch_loam_engine.py and tests/test_torch_vision.py hold the two
+equal). The port keeps its own copy so that it, and
 chip_smoke.py, import nothing of the JAX package.
 
 The scene is a ground plane, building boxes (planes -> surf features) and
 poles (vertical cylinders -> edge features) with exact ground-truth motion.
-Velodyne frame: x forward, y left, z up.
+Velodyne frame: x forward, y left, z up. Camera frame: z forward, x right,
+y down (KITTI cam0).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ class Scene:
     # vertical cylinders: (cx, cy, radius, zmin, zmax)
     poles: np.ndarray = field(default_factory=lambda: np.zeros((0, 5)))
     max_range: float = 80.0
+    # image texture contrast multiplier (1.0 = urban default)
+    tex_scale: float = 1.0
 
 
 def urban_scene(seed: int = 0, extent: float = 60.0, n_boxes: int = 14,
@@ -76,24 +81,28 @@ def hdl64_elevations(n_scans: int = 64) -> np.ndarray:
     raise ValueError(n_scans)
 
 
-def _ray_scene_range(origins: np.ndarray, dirs: np.ndarray,
-                     scene: Scene) -> np.ndarray:
+def _ray_scene_range(origins: np.ndarray, dirs: np.ndarray, scene: Scene,
+                     with_ids: bool = False):
     """Min positive hit distance per ray (inf when no hit). origins [N, 3],
-    dirs [N, 3] unit."""
+    dirs [N, 3] unit. With with_ids, also the hit object's id (0 = ground,
+    1.. = boxes, then poles)."""
     tmin = np.full(dirs.shape[0], np.inf)
+    ids = np.zeros(dirs.shape[0], np.int32)
 
-    def update(hit, t):
-        nonlocal tmin
-        tmin = np.where(hit & (t < tmin), t, tmin)
+    def update(hit, t, oid):
+        nonlocal tmin, ids
+        better = hit & (t < tmin)
+        tmin = np.where(better, t, tmin)
+        ids = np.where(better, oid, ids)
 
     # ground plane z = ground_z
     dz = dirs[:, 2]
     with np.errstate(divide="ignore", invalid="ignore"):
         t = (scene.ground_z - origins[:, 2]) / dz
-    update((np.abs(dz) > 1e-9) & (t > 0.1), t)
+    update((np.abs(dz) > 1e-9) & (t > 0.1), t, 0)
 
     # boxes by the slab method
-    for b in scene.boxes:
+    for k, b in enumerate(scene.boxes):
         lo = b[[0, 2, 4]]
         hi = b[[1, 3, 5]]
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -101,10 +110,10 @@ def _ray_scene_range(origins: np.ndarray, dirs: np.ndarray,
             t2 = (hi[None, :] - origins) / dirs
         tnear = np.nanmax(np.minimum(t1, t2), axis=1)
         tfar = np.nanmin(np.maximum(t1, t2), axis=1)
-        update((tnear <= tfar) & (tfar > 0) & (tnear > 0.1), tnear)
+        update((tnear <= tfar) & (tfar > 0) & (tnear > 0.1), tnear, 1 + k)
 
     # vertical cylinders
-    for p in scene.poles:
+    for k, p in enumerate(scene.poles):
         cx, cy, r, zmin, zmax = p
         ox = origins[:, 0] - cx
         oy = origins[:, 1] - cy
@@ -118,7 +127,9 @@ def _ray_scene_range(origins: np.ndarray, dirs: np.ndarray,
             t = (-bq - sq) / (2 * a)
         z = origins[:, 2] + t * dirs[:, 2]
         update((disc > 0) & (a > 1e-12) & (t > 0.1) & (z >= zmin)
-               & (z <= zmax), t)
+               & (z <= zmax), t, 1 + len(scene.boxes) + k)
+    if with_ids:
+        return tmin, ids
     return tmin
 
 
@@ -179,6 +190,69 @@ def pad_scan(pts: np.ndarray, cap: int) -> tuple[np.ndarray, int]:
     out = np.zeros((cap, 3), np.float32)
     out[:n] = pts[:n]
     return out, n
+
+
+def _ray_scene_hit(origins: np.ndarray, dirs: np.ndarray, scene: Scene):
+    """Hit distance and a textured intensity per ray (camera rendering).
+    Texture phases depend on the hit object, and world-anchored cell noise
+    (faded with distance) gives surfaces aperiodic detail, so that patches
+    are distinctive enough for ratio-test matching."""
+    t, oid = _ray_scene_range(origins, dirs, scene, with_ids=True)
+    hit = np.isfinite(t)
+    tt = np.where(hit, t, 0.0)
+    p = origins + dirs * tt[:, None]
+    ph1 = 2.39996 * oid  # decorrelate per object
+    ph2 = 1.17 * oid
+    cell = np.floor(p * 12.0).astype(np.int64)  # ~8 cm cells
+    hsh = np.sin(cell[:, 0] * 12.9898 + cell[:, 1] * 78.233
+                 + cell[:, 2] * 37.719 + ph1)
+    noise = ((hsh * 43758.5453) % 1.0) * np.clip(1.0 - tt / 45.0, 0.0, 1.0)
+    ts = scene.tex_scale
+    tex = (
+        0.52
+        + ts * 0.16 * np.sin(2.1 * p[:, 0] + ph1) * np.cos(1.7 * p[:, 1] - ph2)
+        + ts * 0.12 * np.sin(5.3 * p[:, 2] + 1.3 * p[:, 0] + 0.7 * ph2)
+        + ts * 0.10 * np.sin(9.1 * p[:, 1] + 3.1 * p[:, 2] + ph1)
+        + ts * 0.06 * np.sin(17.0 * p[:, 0] - 13.0 * p[:, 1] + 2.0 * ph2)
+        + ts * 0.05 * np.sign(np.sin(4.9 * p[:, 0] + ph1)
+                              * np.sin(4.3 * p[:, 2] - ph2))
+        + ts * 0.14 * (noise - 0.5)
+    )
+    shade = np.clip(1.0 - tt / (scene.max_range * 1.2), 0.2, 1.0)
+    img = np.where(hit, np.clip(tex * shade, 0.0, 1.0), 0.08)
+    return img, np.where(hit, tt, np.inf)
+
+
+def render_camera(scene: Scene, T_world_cam: np.ndarray, K: np.ndarray,
+                  width: int, height: int) -> np.ndarray:
+    """Raycast a grayscale image [height, width] float32 in [0, 1] from the
+    camera pose [4, 4] (cam -> world; cam: z forward, x right, y down)."""
+    u, v = np.meshgrid(np.arange(width), np.arange(height))
+    pix = np.stack([u.ravel() + 0.5, v.ravel() + 0.5, np.ones(u.size)],
+                   axis=0)
+    d_cam = np.linalg.solve(K, pix).T
+    d_cam /= np.linalg.norm(d_cam, axis=1, keepdims=True)
+    R = T_world_cam[:3, :3]
+    t = T_world_cam[:3, 3]
+    dw = d_cam @ R.T
+    img, _ = _ray_scene_hit(np.broadcast_to(t, dw.shape), dw, scene)
+    return img.reshape(height, width).astype(np.float32)
+
+
+def default_cam_calib(width: int = 320, height: int = 96):
+    """KITTI-like intrinsics scaled to the image width, and the velo <-> cam
+    extrinsics (the camera sits at the velodyne origin). Returns
+    (K, P_rect0, cam_T_velo, velo_T_cam)."""
+    f = 718.0 * width / 1242.0
+    K = np.array([[f, 0.0, width / 2.0], [0.0, f, height * 0.55],
+                  [0.0, 0.0, 1.0]])
+    # cam axes in the velo frame: x_cam = -y_velo, y_cam = -z_velo,
+    # z_cam = x_velo
+    velo_T_cam = np.eye(4)
+    velo_T_cam[:3, :3] = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], float)
+    cam_T_velo = np.linalg.inv(velo_T_cam)
+    P_rect0 = np.hstack([K, np.zeros((3, 1))])
+    return K, P_rect0, cam_T_velo, velo_T_cam
 
 
 def drive_trajectory(n_frames: int, speed: float = 1.0,

@@ -1,10 +1,11 @@
-"""Host-side (numpy, float64) pose recomposition for unpack_outputs.
+"""Host-side (numpy, float64) pose recomposition for unpack_outputs and
+unpack_vloam_outputs.
 
-A numpy-only copy of the part of vloam_tpu/geometry/np_pose.py that the
-port needs: vloam_tpu.geometry cannot be imported without jax. The
-cumulative composition is a Hillis-Steele doubling prefix scan (SE(3)
-composition is associative), so a long sequence costs O(log n) vectorized
-passes instead of a per-frame Python loop. Quaternions are xyzw.
+A numpy-only copy of vloam_tpu/geometry/np_pose.py: vloam_tpu.geometry
+cannot be imported without jax. The cumulative compositions are
+Hillis-Steele doubling prefix scans (SE(3) composition is associative), so
+a long sequence costs O(log n) vectorized passes instead of a per-frame
+Python loop. Quaternions are xyzw.
 """
 
 from __future__ import annotations
@@ -53,3 +54,55 @@ def cumulative_se3(q_f2f: np.ndarray, t_f2f: np.ndarray):
         q[step:] /= np.linalg.norm(q[step:], axis=-1, keepdims=True)
         step *= 2
     return q, t
+
+
+def mat_cumprod(Ms: np.ndarray) -> np.ndarray:
+    """Inclusive prefix product of a stack of 4x4 matrices [n, 4, 4]
+    (P_k = M_0 @ M_1 @ ... @ M_k), same doubling scheme."""
+    P = np.asarray(Ms, np.float64).copy()
+    n = len(P)
+    step = 1
+    while step < n:
+        left = P[:-step].copy()
+        P[step:] = left @ P[step:]
+        step *= 2
+    return P
+
+
+def quats_to_mats(q: np.ndarray) -> np.ndarray:
+    """[n, 4] xyzw -> [n, 3, 3] rotation matrices, vectorized."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n2 = x * x + y * y + z * z + w * w
+    s = 2.0 / np.maximum(n2, 1e-300)
+    xx, yy, zz = x * x * s, y * y * s, z * z * s
+    xy, xz, yz = x * y * s, x * z * s, y * z * s
+    wx, wy, wz = w * x * s, w * y * s, w * z * s
+    M = np.empty(q.shape[:-1] + (3, 3), np.float64)
+    M[..., 0, 0] = 1.0 - (yy + zz)
+    M[..., 0, 1] = xy - wz
+    M[..., 0, 2] = xz + wy
+    M[..., 1, 0] = xy + wz
+    M[..., 1, 1] = 1.0 - (xx + zz)
+    M[..., 1, 2] = yz - wx
+    M[..., 2, 0] = xz - wy
+    M[..., 2, 1] = yz + wx
+    M[..., 2, 2] = 1.0 - (xx + yy)
+    return M
+
+
+def qt_to_T(q: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """[n, 4], [n, 3] -> [n, 4, 4] homogeneous transforms, vectorized."""
+    n = len(q)
+    T = np.broadcast_to(np.eye(4), (n, 4, 4)).copy()
+    T[:, :3, :3] = quats_to_mats(np.asarray(q, np.float64))
+    T[:, :3, 3] = np.asarray(t, np.float64)
+    return T
+
+
+def inv_T(T: np.ndarray) -> np.ndarray:
+    """Batched rigid-transform inverse [..., 4, 4]."""
+    Ti = np.broadcast_to(np.eye(4), T.shape).copy()
+    Rt = np.swapaxes(T[..., :3, :3], -1, -2)
+    Ti[..., :3, :3] = Rt
+    Ti[..., :3, 3] = -np.einsum("...ij,...j->...i", Rt, T[..., :3, 3])
+    return Ti

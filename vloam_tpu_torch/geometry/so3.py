@@ -87,6 +87,39 @@ def axis_angle_from_quat(q: torch.Tensor) -> torch.Tensor:
     return u * scale[..., None]
 
 
+def _rodrigues_coeffs(axis_angle: torch.Tensor):
+    """sin(t)/t and (1 - cos t)/t^2 of t = |axis_angle| [..., 1], with the
+    reference's series below t^2 = 1e-8."""
+    theta2 = torch.sum(axis_angle * axis_angle, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS))
+    small = theta2 < 1e-8
+    s = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    c1 = torch.where(small, 0.5 - theta2 / 24.0,
+                     (1.0 - torch.cos(theta)) / theta2)
+    return s, c1
+
+
+def rotate_axis_angle(axis_angle: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Rodrigues rotation of v by a rotation vector (Ceres
+    AngleAxisRotatePoint, reference ceres_cost_function.h:30):
+    v + s (w x v) + c1 w x (w x v)."""
+    s, c1 = _rodrigues_coeffs(axis_angle)
+    wxv = cross(axis_angle, v)
+    wxwxv = cross(axis_angle, wxv)
+    return v + s * wxv + c1 * wxwxv
+
+
+def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
+    """The matrix of rotate_axis_angle: I + s [w]x + c1 [w]x^2, [..., 3] ->
+    [..., 3, 3]."""
+    s, c1 = _rodrigues_coeffs(axis_angle)
+    t2 = torch.sum(axis_angle * axis_angle, dim=-1)[..., None, None]
+    eye = torch.eye(3, dtype=axis_angle.dtype, device=axis_angle.device)
+    return (eye + s[..., None] * skew(axis_angle)
+            + c1[..., None] * _skew_sq(axis_angle, t2))
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     x, y, z, w = q.unbind(-1)
     xx, yy, zz = x * x, y * y, z * z

@@ -4,12 +4,15 @@ K1 select_rings  (csrc/select_rings.cu) <- scan_registration.py::
                  _select_rings_pallas_kernel (strict sector selection)
 K2 ring_min2     (csrc/ring_min2.cu)    <- ring_assoc.py::_ring_min2_kernel
                  (per-ring min-2 behind LO association)
+K3 zncc_describe (csrc/zncc_describe.cu) <- vision/features.py::
+                 _describe_zncc_pallas (ZNCC patch descriptors)
 
 The wrappers here accept CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate outputs with torch.empty, launch on PyTorch's
 current stream and raise if the launch is refused. The CPU dispatch to the
 plain PyTorch versions lives in the callers (lidar/scan_registration.py,
-lidar/ring_assoc.py) and is taken only for CPU tensors.
+lidar/ring_assoc.py, vision/features.py) and is taken only for CPU
+tensors.
 
 ``LAUNCHES`` counts launches per kernel; each wrapper adds one exactly
 where its kernel is launched.
@@ -21,7 +24,7 @@ import torch
 
 from . import build
 
-LAUNCHES = {"select_rings": 0, "ring_min2": 0}
+LAUNCHES = {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0}
 
 
 def reset_launches() -> None:
@@ -104,3 +107,31 @@ def select_rings(curv: torch.Tensor, bf: torch.Tensor, counts: torch.Tensor,
     _check(lib, err, "select_rings")
     LAUNCHES["select_rings"] += 1
     return label
+
+
+def zncc_describe(img: torch.Tensor, xy: torch.Tensor, p: int) -> torch.Tensor:
+    """K3 on the card: img [H, W] f32, xy [K, 2] f32 pixel coordinates
+    (x, y) -> descriptors [K, p*p] f32 (zero rows for patches whose centred
+    norm is below 1e-3). 1 <= p <= 32 and p <= H, W."""
+    _require(img, "img", torch.float32, 2)
+    _require(xy, "xy", torch.float32, 2)
+    H, W = img.shape
+    K = xy.shape[0]
+    if xy.shape[1] != 2:
+        raise ValueError(f"zncc_describe: xy must be [K, 2], got {xy.shape}")
+    if not 1 <= p <= min(32, H, W):
+        raise ValueError(f"zncc_describe: patch {p} needs 1 <= p <= "
+                         f"min(32, H, W) for an image {tuple(img.shape)}")
+    if img.device != xy.device:
+        raise ValueError("zncc_describe: inputs on different devices")
+    lib = build.load()
+    out = torch.empty((K, p * p), dtype=torch.float32, device=img.device)
+    if K == 0:
+        return out
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.vloam_zncc_describe(img.data_ptr(), xy.data_ptr(),
+                                      out.data_ptr(), K, H, W, p, stream)
+    _check(lib, err, "zncc_describe")
+    LAUNCHES["zncc_describe"] += 1
+    return out

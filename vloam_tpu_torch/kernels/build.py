@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (kernels/csrc/*.cu).
 
-The sources are compiled with nvcc for Hopper (sm_90a) into one shared
-library with a plain C interface, loaded with ctypes. The build happens at
-first use, from the package's own sources, into kernels/build/; the library
-name carries a hash of the sources and flags, so an edited source is rebuilt
-and a stale library is never loaded. There is no fallback: without nvcc the
-build raises.
+The sources are compiled with nvcc for Hopper (sm_90a), one nvcc process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes. The build happens at first use, from
+the package's own sources, into kernels/build/; the library name carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. There is no fallback: without nvcc the build
+raises.
 
 Run ``python -m vloam_tpu_torch.kernels.build`` to build ahead of time and
 print ptxas' register / shared-memory report.
@@ -25,9 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # -fmad=false: K2's distances must round like the plain PyTorch version
 # (separately rounded products and sums) for its argmins to match exactly.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v"]
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's own prefix
 
@@ -65,6 +66,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvloam_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Start every command at once, wait for all; (cmd, rc, output) each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)]
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has not been built yet;
     returns the library path. ptxas' report goes to a .log beside it."""
@@ -73,17 +83,18 @@ def build() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = lib.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources()]
+        steps = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                          for src, o in zip(sources(), objs)])
+        if all(rc == 0 for _, rc, _ in steps):
+            so = str(Path(tmp) / "lib.so")
+            steps += _run_all([[nvcc, *ARCH, "-shared", "-o", so, *objs]])
+        report = "".join(" ".join(c) + "\n" + out for c, _, out in steps)
+        lib.with_suffix(".log").write_text(report)
+        if any(rc != 0 for _, rc, _ in steps):
+            raise RuntimeError(f"nvcc failed:\n{report}")
+        os.replace(so, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 
 
@@ -100,6 +111,8 @@ def load() -> ctypes.CDLL:
     lib.vloam_ring_min2.restype = i
     lib.vloam_select_rings.argtypes = [p, p, p, p, i, i, f, i, i, i, i, p]
     lib.vloam_select_rings.restype = i
+    lib.vloam_zncc_describe.argtypes = [p, p, p, i, i, i, i, p]
+    lib.vloam_zncc_describe.restype = i
     lib.vloam_error_string.argtypes = [i]
     lib.vloam_error_string.restype = ctypes.c_char_p
     _loaded[path] = lib
