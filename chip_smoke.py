@@ -1,16 +1,20 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the LiDAR-only
-LOAM engine and the combined camera + LiDAR engine.
+LOAM engine, the combined camera + LiDAR engine and the 4-stream lockstep
+batch engine.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit; CUDA required, TF32 off
   2. build: compile the hand-written kernels from kernels/csrc with nvcc
-  frames: a 48-frame synthetic HDL-64 polar drive (64 x 1800) and its
-     1242 x 375 camera images, rendered in worker processes
+  frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
+     1242 x 375 camera images, and three more 20-frame polar drives for the
+     batch engine's other streams, rendered in worker processes
   warm-up: ~3 s of matmuls so that the timed phases start on a busy card
   3. K1 select_rings vs its plain PyTorch version on real frame layouts
-  4. K2 ring_min2 vs its plain version at the corner and surf LO shapes
+  4. K2 ring_min2 and S1 ring_min1 / ring_argmin2 vs their plain versions at
+     the corner and surf LO shapes on real frame features, on crafted ties
+     and at the two shapes of the ring-variants measurement
   5. end to end: LoamEngine(kitti_hdl64(), chunk=16, device="cuda") over the
      drive; frames/s, kernel launch counts, MO error against ground truth,
      no host sync in the timed frames
@@ -22,10 +26,35 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      launch counts, LO / MO error and VO ATE against ground truth, no host
      sync
   9. the first 4 frames of phase 8 again on the CPU: LO, MO and VO agree
-  10. launches per frame: torch.profiler over 8 steady frames of each engine
-Phases 3-5 and 7-8 end with the SM clock, its maximum, the power draw and
-the temperature that nvidia-smi reads just after their timed runs. Then the
-kernels' JSON line, the card's line and, last, the device line.
+  10. batch end to end: BatchLoamEngine(kitti_hdl64(), 4, chunk=4,
+     device="cuda") over 20 lockstep frames of 4 drives; aggregate frames/s
+     beside the single engine's on the same frames, launches per lockstep
+     frame, MO error per stream, each stream against its single-engine run,
+     no host sync
+  11. the first 2 lockstep frames of 2 streams again on the CPU
+  S2. row_gather vs table[idx] (bit-identical) and torch.index_select on the
+     four gathers of a real frame of the single engine (probe 16384 x 96 and
+     49152 x 48 floats from [2^17, W] tables, insert 2048 and 6144 rows), on
+     the four of a lockstep frame of the batch engine (4x the rows, from the
+     flat [4 * 2^17, W] tables, ids carrying the stream offsets) and at
+     [2^17, 96] x 65536 random
+  12. the ring-variants measurement entry point (ring_argmin2's path): its
+     check against the plain version and its times
+  13. launches per frame: torch.profiler over steady frames of each engine
+     (printed, not gated: the profiler can lose records)
+Timed phases end with the SM clock, its maximum, the power draw and the
+temperature that nvidia-smi reads just after their timed runs. Then the
+kernels' JSON line, the card's line and, last, the device line. Each row of
+the kernels' line takes its times and its bound at the shapes of the path
+that its launches are counted on: the batch drive (phase 10) for
+select_rings, ring_min2, ring_min1 (per stream: the single engine's shapes)
+and row_gather (the flat surf probe), the combined engine (phase 8) for
+zncc_describe, the ring-variants entry point (phase 12) for ring_argmin2.
+
+Kernel times are device times (vloam_tpu_torch.tools.timing.device_ms: CUDA
+events around 20 calls queued behind a blocker, so the ~30 us host call of a
+wrapper is not in them), with a cold L2 for the memory-bound kernels (K1,
+K3, S2; device_ms's default) and a warm one for the ring reductions.
 
 Imports nothing of JAX or of the JAX package: the configuration and the
 synthetic scene generator are the port's own (vloam_tpu_torch.config,
@@ -37,7 +66,6 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -47,8 +75,16 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 import torch
 
-N_FRAMES = 48
+N_FRAMES = 32
 CHUNK = 16
+BATCH = 4  # streams of the batch drive
+BATCH_FRAMES = 20  # lockstep frames: one warm chunk, then 16 timed
+BATCH_CHUNK = 4
+BATCH_CPU = (2, 2)  # streams, lockstep frames of the card-vs-CPU check
+# batch engine against the single engine per stream, in metres (the bounds of
+# tests/test_batch_engine.py), and against its own CPU run (as phase 6)
+BATCH_SINGLE_TOL = {"LO": 1e-3, "MO": 1e-2}
+BATCH_CPU_TOL = {"LO": 2e-2, "MO": 3e-2}
 N_AZ = 1800
 CPU_FRAMES = 6
 IMG_W, IMG_H = 1242, 375
@@ -59,6 +95,9 @@ PROFILE_FRAMES = 8
 # VO as MO (the depth grid adds by atomics on the card, and the VO LM sums
 # in another order)
 VLOAM_CPU_TOL = {"LO": 2e-2, "MO": 3e-2, "VO": 3e-2}
+
+
+S1_REPLACES = "scripts/profile_ring_variants.py:73"
 
 
 def fail(msg: str) -> None:
@@ -89,31 +128,27 @@ def warm_up(seconds: float = 3.0) -> None:
           flush=True)
 
 
-def cuda_ms(fn, runs: int = 25) -> float:
-    """Median device time of fn() in ms, from CUDA events, after warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def io_bytes(*tensors) -> int:
+    """Bytes of the given inputs and outputs, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, bound,
+               library_ms=None) -> dict:
+    bound_ms, bound_by = bound
+    return {"name": name, "route": "cuda",
+            "source": f"vloam_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces, "max_abs_err": float(err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def device_phase() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    from vloam_tpu_torch.tools.timing import card_line
+
+    card = card_line()
     print(card, flush=True)
     # float32 products in full precision (the LM normal equations are
     # einsums over ~10k rows); tolerances below assume it
@@ -149,17 +184,23 @@ class Calib:
         self.imu_T_cam0 = velo_T_cam
 
 
+def _scan(seed: int, T: np.ndarray) -> np.ndarray:
+    """One polar scan of the scene from sensor pose T."""
+    from vloam_tpu_torch.data import synthetic
+
+    return synthetic.simulate_scan_polar(
+        synthetic.urban_scene(0, extent=80.0), T, n_scans=64, n_azimuth=N_AZ,
+        noise=0.01, seed=seed)
+
+
 def _render(k: int, T: np.ndarray):
     """Frame k: the polar scan and the camera image from sensor pose T."""
     from vloam_tpu_torch.data import synthetic
 
-    scene = synthetic.urban_scene(0, extent=80.0)
     calib = Calib()
-    scan = synthetic.simulate_scan_polar(scene, T, n_scans=64,
-                                         n_azimuth=N_AZ, noise=0.01, seed=k)
-    img = synthetic.render_camera(scene, T @ calib.imu_T_cam0, calib.K,
-                                  IMG_W, IMG_H)
-    return scan, np.clip(img * 255.0, 0, 255).astype(np.uint8)
+    img = synthetic.render_camera(synthetic.urban_scene(0, extent=80.0),
+                                  T @ calib.imu_T_cam0, calib.K, IMG_W, IMG_H)
+    return _scan(k, T), np.clip(img * 255.0, 0, 255).astype(np.uint8)
 
 
 def make_frames():
@@ -172,12 +213,22 @@ def make_frames():
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
         out = list(pool.map(_render, range(N_FRAMES), poses))
-    frames = [f for f, _ in out]
-    images = [im for _, im in out]
+        frames = [f for f, _ in out]
+        images = [im for _, im in out]
+        # the batch engine's other streams: other yaw rates, other noise
+        streams, stream_poses = [frames[:BATCH_FRAMES]], [poses[:BATCH_FRAMES]]
+        for b in range(1, BATCH):
+            ps = synthetic.drive_trajectory(
+                BATCH_FRAMES, speed=1.1 - 0.1 * b,
+                yaw_rate=0.01 * (-1) ** b * (b + 1))
+            streams.append(list(pool.map(
+                _scan, range(1000 * b, 1000 * b + BATCH_FRAMES), ps)))
+            stream_poses.append(ps)
     print(f"[frames] {N_FRAMES} polar frames 64x{N_AZ} and {IMG_W}x{IMG_H} "
-          f"camera images in {time.perf_counter() - t0:.1f} s (host, "
-          f"{workers} processes)", flush=True)
-    return frames, images, poses
+          f"camera images, {BATCH - 1} x {BATCH_FRAMES} more polar frames in "
+          f"{time.perf_counter() - t0:.1f} s (host, {workers} processes)",
+          flush=True)
+    return frames, images, poses, streams, stream_poses
 
 
 def frame_features(cfg, frames, dirs):
@@ -197,6 +248,7 @@ def frame_features(cfg, frames, dirs):
 
 def k1_phase(cfg, ff) -> dict:
     from vloam_tpu_torch.lidar import scan_registration as sr
+    from vloam_tpu_torch.tools import timing
 
     err = 0
     for curv, bf, counts, _ in ff:
@@ -207,52 +259,65 @@ def k1_phase(cfg, ff) -> dict:
             fail(f"K1 labels differ at {int((got != want).sum())} points")
         err = max(err, int((got - want).abs().max()))
     curv, bf, counts, _ = ff[0]
-    ms = cuda_ms(lambda: sr.select_rings(curv, bf, counts, cfg.scanreg))
-    plain_ms = cuda_ms(
-        lambda: sr.select_rings_plain(curv, bf, counts, cfg.scanreg))
+    ms = timing.device_ms(
+        lambda: sr.select_rings(curv, bf, counts, cfg.scanreg))
+    plain_ms = timing.device_ms(
+        lambda: sr.select_rings_plain(curv, bf, counts, cfg.scanreg), runs=5,
+        cold=False)
     n_lab = int((got != 0).sum())
+    # each input and the labels once; per ring 2 x 24 rounds of one compare
+    # per point (the sector's running extremum)
+    bound = timing.bound_ms(io_bytes(curv, bf, counts, got),
+                            2 * 24 * curv.numel())
     print(f"[3 K1 select_rings] {len(ff)} frames [64,{N_AZ}] labels "
           f"identical ({n_lab} labelled); kernel {ms * 1e3:.1f} us, plain "
-          f"{plain_ms * 1e3:.1f} us {clocks()}", flush=True)
-    return {"name": "select_rings", "route": "cuda",
-            "source": "vloam_tpu_torch/kernels/csrc/select_rings.cu",
-            "replaces": "vloam_tpu/lidar/scan_registration.py:261",
-            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+          f"{plain_ms * 1e3:.1f} us, bound by {bound[1]} "
+          f"{bound[0] * 1e3:.2f} us {clocks()}", flush=True)
+    return kernel_row("select_rings", "select_rings.cu",
+                      "vloam_tpu/lidar/scan_registration.py:261", err, ms,
+                      plain_ms, bound)
 
 
-def _k2_check(q, slab_t, what) -> float:
+def _ring_check(q, slab_t, what, errs) -> None:
+    """K2 and both S1 kernels against the plain versions on the card: every
+    slot and every distance identical (all round (dx^2 + dy^2) + dz^2 alike),
+    so ring_argmin2 equals K2 and ring_min1 its first half. Raises each
+    kernel's entry of errs to its largest |difference| over all outputs."""
+    from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar import ring_assoc as ra
 
-    got = ra.ring_min2(q, slab_t)
     want = ra.ring_min2_plain(q, slab_t)
+    want1 = ra.ring_min1_plain(q, slab_t)
+    got = {"ring_min2": (ra.ring_min2(q, slab_t), want),
+           "ring_argmin2": (kernels.ring_argmin2(q, slab_t), want),
+           "ring_min1": (ra.ring_min1(q, slab_t), want1)}
     torch.cuda.synchronize()
-    for i in (1, 3):
-        if not torch.equal(got[i], want[i]):
-            fail(f"K2 {what}: argmins differ at "
-                 f"{int((got[i] != want[i]).sum())} entries")
-    err = 0.0
-    for i in (0, 2):
-        d = (got[i] - want[i]).abs()
-        if bool((d > 1e-6 * want[i].abs().clamp(min=1.0)).any()):
-            fail(f"K2 {what}: distances differ by up to {float(d.max())}")
-        err = max(err, float(d.max()))
-    return err
+    if not all(torch.equal(a, b) for a, b in zip(want1, want[:2])):
+        fail(f"{what}: ring_min1_plain is not ring_min2_plain's first half")
+    for name, (outs, ref) in got.items():
+        for i, (g, w) in enumerate(zip(outs, ref)):
+            errs[name] = max(errs[name], float((g - w).abs().max()))
+            if not torch.equal(g, w):
+                fail(f"{name} {what}: output {i} differs at "
+                     f"{int((g != w).sum())} entries, max {errs[name]}")
 
 
-def k2_phase(ff) -> dict:
+def ring_phase(ff) -> tuple[dict, dict, float]:
+    from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar import ring_assoc as ra
+    from vloam_tpu_torch.tools import profile_ring_variants as prv
+    from vloam_tpu_torch.tools import timing
 
-    err = 0.0
-    times = {}
+    shapes = {}
+    errs = {"ring_min2": 0.0, "ring_min1": 0.0, "ring_argmin2": 0.0}
     for k in (1, 2):
         prev, cur = ff[k - 1][3], ff[k][3]
         for what, q, slab in (("corner", cur.sharp.xyz, prev.less_sharp_slab),
                               ("surf", cur.flat.xyz, prev.less_flat_slab)):
             q = q.contiguous()
             slab_t = slab.xyz.transpose(1, 2).contiguous()
-            err = max(err, _k2_check(q, slab_t, what))
-            times[what] = (q.shape[0], slab_t.shape[2], slab_t,
-                           q)
+            _ring_check(q, slab_t, what, errs)
+            shapes[what] = (q, slab_t)
     # crafted: duplicate points (exact ties) and all-SENTINEL rings
     g = torch.Generator().manual_seed(0)
     slab = torch.full((64, 128, 3), ra.SENTINEL)
@@ -260,26 +325,73 @@ def k2_phase(ff) -> dict:
     slab[::4, 50] = slab[::4, 7]
     q = torch.cat([slab[0, 7:8], torch.rand((199, 3), generator=g) * 80 - 40])
     slab_t = slab.transpose(1, 2).contiguous().cuda()
-    err = max(err, _k2_check(q.cuda(), slab_t, "ties"))
-    got = ra.ring_min2(q.cuda(), slab_t)
-    if int(got[1][0, 0]) != 7 or int(got[3][0, 0]) != 50 or \
-            int(got[1][1, 5]) != 0 or int(got[3][1, 5]) != 1:
-        fail("K2 tie rules")
-    line = []
-    res = {}
-    for what, (Q, C, slab_t, q) in times.items():
-        ms = cuda_ms(lambda: ra.ring_min2(q, slab_t))
-        plain_ms = cuda_ms(lambda: ra.ring_min2_plain(q, slab_t))
-        res[what] = (ms, plain_ms)
-        line.append(f"{what} {Q}x[64,3,{C}] kernel {ms * 1e3:.1f} us, "
-                    f"plain {plain_ms * 1e3:.1f} us")
-    print(f"[4 K2 ring_min2] argmins identical, max |d err| {err:.3g}; "
-          + "; ".join(line) + f" {clocks()}", flush=True)
-    ms, plain_ms = res["surf"]
-    return {"name": "ring_min2", "route": "cuda",
-            "source": "vloam_tpu_torch/kernels/csrc/ring_min2.cu",
-            "replaces": "vloam_tpu/lidar/ring_assoc.py:86",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    _ring_check(q.cuda(), slab_t, "ties", errs)
+    for fn in (ra.ring_min2, kernels.ring_argmin2):
+        got = fn(q.cuda(), slab_t)
+        if int(got[1][0, 0]) != 7 or int(got[3][0, 0]) != 50 or \
+                int(got[1][1, 5]) != 0 or int(got[3][1, 5]) != 1:
+            fail(f"{fn.__name__} tie rules")
+    got = ra.ring_min1(q.cuda(), slab_t)
+    if int(got[1][0, 0]) != 7 or int(got[1][1, 5]) != 0:
+        fail("ring_min1 tie rules")
+    for name, S, C, Q in prv.SHAPES:
+        _ring_check(*prv.make(S, C, Q), f"measurement shape {name}", errs)
+
+    fns = {"ring_min2": (ra.ring_min2, ra.ring_min2_plain, 4),
+           "ring_min1": (ra.ring_min1, ra.ring_min1_plain, 2),
+           "ring_argmin2": (kernels.ring_argmin2, ra.ring_min2_plain, 4)}
+    res, line = {}, []
+    for what, (q, slab_t) in shapes.items():
+        Q, S, C = q.shape[0], slab_t.shape[0], slab_t.shape[2]
+        for name, (fn, plain, n_out) in fns.items():
+            res[name, what] = (
+                timing.device_ms(lambda: fn(q, slab_t), cold=False),
+                timing.device_ms(lambda: plain(q, slab_t), runs=10,
+                                 cold=False),
+                timing.ring_reduce_bound(Q, S, C, n_out))
+        line.append(f"{what} {Q}x[{S},3,{C}] " + ", ".join(
+            f"{name} {res[name, what][0] * 1e3:.1f} us (plain "
+            f"{res[name, what][1] * 1e3:.1f}, bound "
+            f"{res[name, what][2][0] * 1e3:.2f})" for name in fns))
+    print("[4 K2 ring_min2, S1 ring_min1 / ring_argmin2] slots and distances "
+          "identical to the plain versions (real features, ties, measurement "
+          "shapes); device time " + "; ".join(line) + f" {clocks()}",
+          flush=True)
+    # each engine kernel's row at the shape its path gives it, per stream
+    # in the batch drive as in the single engine: K2 surf, ring_min1 corner.
+    # ring_argmin2's times come from its own path, the ring-variants entry
+    # point (phase 12), which gets its |difference| from here
+    return [
+        kernel_row("ring_min2", "ring_min2.cu",
+                   "vloam_tpu/lidar/ring_assoc.py:86", errs["ring_min2"],
+                   *res["ring_min2", "surf"]),
+        kernel_row("ring_min1", "ring_min1.cu", S1_REPLACES,
+                   errs["ring_min1"], *res["ring_min1", "corner"]),
+        errs["ring_argmin2"]]
+
+
+def _sync_free(push, ks):
+    """Run push(k) for k in ks with every host sync recorded; returns (host
+    enqueue seconds, the sync warnings)."""
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        for k in ks:
+            push(k)
+        torch.cuda.set_sync_debug_mode("default")
+    host = time.perf_counter() - t0
+    return host, [str(w.message) for w in caught
+                  if "synchronizing CUDA operation" in str(w.message)]
+
+
+def lidar_launches(n: int, **more) -> dict:
+    """Launches of n single-stream frames: K1 once; LO associates twice per
+    frame (K2 for surf, ring_min1 for corner each time); the mapping stage
+    gathers rows 4 times (2 probes, 2 inserts)."""
+    return {"select_rings": n, "ring_min2": 2 * n, "ring_min1": 2 * n,
+            "row_gather": 4 * n, "zncc_describe": 0, "ring_argmin2": 0,
+            **more}
 
 
 def e2e_phase(cfg, frames, poses):
@@ -296,15 +408,8 @@ def e2e_phase(cfg, frames, poses):
     t0 = time.perf_counter()
     # the frame loop must never wait on the device: every host sync the
     # timed frames make is recorded and fails the phase
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        for k in range(CHUNK, N_FRAMES):
-            eng.push_polar(frames[k])
-        torch.cuda.set_sync_debug_mode("default")
-    host = time.perf_counter() - t0
-    syncs = [str(w.message) for w in caught
-             if "synchronizing CUDA operation" in str(w.message)]
+    host, syncs = _sync_free(lambda k: eng.push_polar(frames[k]),
+                             range(CHUNK, N_FRAMES))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     clk = clocks()
@@ -326,14 +431,14 @@ def e2e_phase(cfg, frames, poses):
           f"the timed frames {len(syncs)} {clk}", flush=True)
     if outs.shape != (N_FRAMES, 24) or not np.isfinite(outs).all():
         fail(f"outputs {outs.shape} not finite")
-    if launches["select_rings"] != N_FRAMES or \
-            launches["ring_min2"] != 4 * N_FRAMES:
-        fail(f"kernel launch counts {launches}")
+    want = lidar_launches(N_FRAMES)
+    if launches != want:
+        fail(f"kernel launch counts {launches}, want {want}")
     if syncs:
         fail(f"the frame loop synchronized with the device: {syncs[:3]}")
     if not err < 0.15:
         fail(f"MO error {err} m >= 0.15 m")
-    return res, launches
+    return res, eng
 
 
 def cpu_phase(cfg, frames, res_gpu) -> None:
@@ -353,11 +458,233 @@ def cpu_phase(cfg, frames, res_gpu) -> None:
         fail("card and CPU trajectories disagree")
 
 
+def _capture_gathers(run):
+    """The (table, idx) arguments of every row gather that run() makes, in
+    the single-stream map (gridmap) and in the flat batch map
+    (batch_mapping, which binds the dispatcher under its own name)."""
+    from vloam_tpu_torch.lidar import batch_mapping, gridmap
+
+    seen = []
+    real = gridmap.row_gather
+
+    def recorder(table, idx):
+        seen.append((table, idx))
+        return real(table, idx)
+
+    gridmap.row_gather = batch_mapping.row_gather = recorder
+    try:
+        run()
+    finally:
+        gridmap.row_gather = batch_mapping.row_gather = real
+    torch.cuda.synchronize()
+    return seen
+
+
+_GATHERS = ("corner probe", "surf probe", "corner insert", "surf insert")
+
+
+def s2_phase(eng, frame, beng, streams) -> dict:
+    """S2 against its plain version on the four gathers of one more real
+    frame through the phase-5 engine (its map holds the whole drive), on the
+    four of one more lockstep frame through the phase-10 batch engine (flat
+    tables of all streams, ids with stream offsets) and at the measurement's
+    [2^17, 96] x 65536 random shape."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.lidar import gridmap
+    from vloam_tpu_torch.tools import profile_row_gather as prg
+    from vloam_tpu_torch.tools import timing
+
+    def one_frame():
+        eng.push_polar(frame)
+        eng.finish()
+
+    def one_lockstep_frame():
+        _lockstep(beng, streams, [BATCH_FRAMES - 1])
+        beng.finish()
+
+    nb = 1 << 17
+    cases = []
+    for who, run, B in (("frame", one_frame, 1),
+                        ("batch", one_lockstep_frame, BATCH)):
+        seen = _capture_gathers(run)
+        shapes = [(tuple(t.shape), len(i)) for t, i in seen]
+        want = [((B * nb, 96), B * 16384), ((B * nb, 48), B * 49152),
+                ((B * nb, 96), B * 2048), ((B * nb, 48), B * 6144)]
+        if shapes != want:
+            fail(f"S2: the {who} gathers are {shapes}, want {want}")
+        cases += [(f"{who} {what}", t, i) for what, (t, i) in zip(_GATHERS,
+                                                                  seen)]
+    # the batch probe really spans the streams' tables
+    top = int(cases[5][2].max()) // nb
+    if top != BATCH - 1:
+        fail(f"S2: the batch surf probe's highest row is in stream {top}")
+    cases.append(("random", *prg.make()))
+    line, rows, err = [], {}, 0.0
+    for what, table, idx in cases:
+        got = gridmap.row_gather(table, idx)
+        want = gridmap.row_gather_plain(table, idx)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            fail(f"S2 {what}: differs from table[idx] at "
+                 f"{int((got != want).sum())} elements")
+        live = float((got[:, 0] < 1e5).float().mean())
+        ms = timing.device_ms(lambda: kernels.row_gather(table, idx))
+        warm = timing.device_ms(lambda: kernels.row_gather(table, idx),
+                                cold=False)
+        plain = timing.device_ms(
+            lambda: gridmap.row_gather_plain(table, idx))
+        lib = timing.device_ms(lambda: torch.index_select(table, 0, idx))
+        n_unique = len(torch.unique(idx))
+        bound = timing.row_gather_bound(len(idx), table.shape[1], n_unique)
+        rows[what] = (ms, plain, bound, lib)
+        line.append(f"{what} {len(idx)} x {table.shape[1]} f32 of "
+                    f"{table.shape[0]} ({n_unique} distinct rows, "
+                    f"{live:.0%} live): kernel {ms * 1e3:.1f} us "
+                    f"({warm * 1e3:.1f} warm L2), table[idx] "
+                    f"{plain * 1e3:.1f}, index_select {lib * 1e3:.1f}, "
+                    f"bound {bound[0] * 1e3:.1f}")
+    print("[S2 row_gather] bit-identical to table[idx]; device time, cold "
+          "L2: " + "; ".join(line) + f" {clocks()}", flush=True)
+    # the row: the largest gather of the path the launches are counted on,
+    # the batch drive's flat surf probe
+    return kernel_row("row_gather", "row_gather.cu",
+                      "scripts/profile_pallas_gather.py:55", err,
+                      *rows["batch surf probe"])
+
+
+def _lockstep(eng, streams, ks) -> None:
+    for k in ks:
+        for b, frames in enumerate(streams):
+            eng.push_polar(b, frames[k])
+
+
+def batch_phase(cfg, streams, stream_poses):
+    """4 streams in lockstep through BatchLoamEngine, then each stream alone
+    through LoamEngine over the same frames, in turns on the same card."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.lidar.loam_step import (BatchLoamEngine, LoamEngine,
+                                                 unpack_outputs)
+
+    n_timed = BATCH_FRAMES - BATCH_CHUNK
+    eng = BatchLoamEngine(cfg, BATCH, chunk=BATCH_CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    _lockstep(eng, streams, range(BATCH_CHUNK))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, syncs = _sync_free(lambda k: _lockstep(eng, streams, [k]),
+                             range(BATCH_CHUNK, BATCH_FRAMES))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    clk = clocks()
+    outs = eng.finish()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if outs.shape != (BATCH, BATCH_FRAMES, 24) or not np.isfinite(outs).all():
+        fail(f"batch outputs {outs.shape} not finite")
+
+    single_dt, errs, diffs = [], [], []
+    for b in range(BATCH):
+        one = LoamEngine(cfg, chunk=BATCH_CHUNK, device="cuda")
+        for k in range(BATCH_CHUNK):
+            one.push_polar(streams[b][k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(BATCH_CHUNK, BATCH_FRAMES):
+            one.push_polar(streams[b][k])
+        torch.cuda.synchronize()
+        single_dt.append(time.perf_counter() - t0)
+        ref = unpack_outputs(one.finish())
+        res = unpack_outputs(outs[b])
+        gt = np.stack([T[:3, 3] for T in stream_poses[b]])
+        errs.append(float(np.linalg.norm(res["t_w_mo"] - gt, axis=1).max()))
+        diffs.append({w: float(np.abs(res[f"t_w_{w.lower()}"]
+                                      - ref[f"t_w_{w.lower()}"]).max())
+                      for w in BATCH_SINGLE_TOL})
+    fps = BATCH * n_timed / dt
+    single_fps = BATCH * n_timed / sum(single_dt)
+    per_frame = {k: v / BATCH_FRAMES for k, v in launches.items() if v}
+    print(f"[10 batch end to end] {BATCH} streams x {BATCH_FRAMES} lockstep "
+          f"frames kitti_hdl64 64x{N_AZ}, chunk {BATCH_CHUNK}: {fps:.2f} "
+          f"stream-frames/s over lockstep frames {BATCH_CHUNK}-"
+          f"{BATCH_FRAMES - 1} ({dt * 1e3 / n_timed:.2f} ms per lockstep "
+          f"frame, host enqueue {host * 1e3 / n_timed:.2f} ms) against "
+          f"{single_fps:.2f} frames/s of LoamEngine over the same frames, one "
+          f"stream after the other ({fps / single_fps:.2f}x); launches per "
+          f"lockstep frame {per_frame}; MO max err vs GT per stream "
+          + ", ".join(f"{e:.4f}" for e in errs) + " m; batch vs single max "
+          "diff per stream " + ", ".join(
+              f"LO {d['LO']:.2e} MO {d['MO']:.2e}" for d in diffs)
+          + f" m; peak device memory {peak:.0f} MiB; host syncs in the timed "
+          f"frames {len(syncs)} {clk}", flush=True)
+    want = lidar_launches(BATCH * BATCH_FRAMES, row_gather=4 * BATCH_FRAMES)
+    if launches != want:
+        fail(f"batch kernel launch counts {launches}, want {want}")
+    if syncs:
+        fail(f"the batch loop synchronized with the device: {syncs[:3]}")
+    if not max(errs) < 0.15:
+        fail(f"batch MO error {max(errs)} m >= 0.15 m")
+    for d in diffs:
+        if any(not d[w] < BATCH_SINGLE_TOL[w] for w in d):
+            fail(f"batch and single engines disagree: {diffs}")
+    return outs, launches, eng
+
+
+def batch_cpu_phase(cfg, streams, outs_gpu) -> None:
+    from vloam_tpu_torch.lidar.loam_step import (BatchLoamEngine,
+                                                 unpack_outputs)
+
+    nb, nf = BATCH_CPU
+    t0 = time.perf_counter()
+    eng = BatchLoamEngine(cfg, nb, chunk=nf, device="cpu")
+    _lockstep(eng, streams[:nb], range(nf))
+    outs = eng.finish()
+    diff = {"LO": 0.0, "MO": 0.0}
+    for b in range(nb):
+        res, ref = unpack_outputs(outs[b]), unpack_outputs(outs_gpu[b][:nf])
+        for w in diff:
+            key = f"t_w_{w.lower()}"
+            diff[w] = max(diff[w], float(np.abs(res[key] - ref[key]).max()))
+    print(f"[11 batch card vs CPU] first {nf} lockstep frames of {nb} "
+          "streams: max position diff "
+          + ", ".join(f"{w} {d:.2e} m (bound {BATCH_CPU_TOL[w]:.0e})"
+                      for w, d in diff.items())
+          + f" (CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
+    if any(not diff[w] < BATCH_CPU_TOL[w] for w in diff):
+        fail("card and CPU trajectories of the batch engine disagree")
+
+
+def ring_variants_phase(err: float) -> dict:
+    """The measurement entry point that launches ring_argmin2: its path. It
+    holds every variant against the plain version before it times them;
+    ring_argmin2's row takes its times at the entry point's surf shape."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.tools import profile_ring_variants as prv
+    from vloam_tpu_torch.tools import timing
+
+    kernels.reset_launches()
+    print("[12 ring variants entry point]", flush=True)
+    ms = prv.run(runs=10)
+    n = kernels.LAUNCHES["ring_argmin2"]
+    if not (n > 0 and kernels.LAUNCHES["ring_min1"] > 0
+            and kernels.LAUNCHES["ring_min2"] > 0):
+        fail(f"the ring-variants entry point launched {kernels.LAUNCHES}")
+    name, S, C, Q = prv.SHAPES[1]
+    row = kernel_row("ring_argmin2", "ring_min1.cu", S1_REPLACES, err,
+                     ms[name]["ring_argmin2"], ms[name]["plain min2"],
+                     timing.ring_reduce_bound(Q, S, C, 4))
+    row["launches"] = n
+    return row
+
+
 def k3_phase(cfg, images) -> dict:
     """K3 against its plain version on detected keypoints of 3 rendered
     frames, their last 8 rows replaced by crafted ones: the four image
     corners and a negative x (clipped patches), two keypoints on a constant
     patch (the 1e-3 floor) and one in the middle."""
+    from vloam_tpu_torch.tools import timing
     from vloam_tpu_torch.vision import features as tf
 
     crafted = torch.tensor([
@@ -388,20 +715,26 @@ def k3_phase(cfg, images) -> dict:
             err = max(err, e)
             n_zero = max(n_zero, int(zg.sum()))
             inputs[p] = (img, xy)
-    times = {p: (cuda_ms(lambda: tf.zncc_describe(img, xy, p)),
-                 cuda_ms(lambda: tf.zncc_describe_plain(img, xy, p)))
+    times = {p: (timing.device_ms(lambda: tf.zncc_describe(img, xy, p)),
+                 timing.device_ms(
+                     lambda: tf.zncc_describe_plain(img, xy, p)))
              for p, (img, xy) in inputs.items()}
+    # the main path's patch size (cfg.vo's 24): image, keypoints and
+    # descriptors once; per descriptor element a bilinear sample (7
+    # operations) and 2 for each of mean and norm
+    img, xy = inputs[24]
+    n_desc = len(xy) * 24 * 24
+    bound = timing.bound_ms(io_bytes(img, xy) + 4 * n_desc, 11 * n_desc)
     print(f"[7 K3 zncc_describe] 3 frames [{IMG_H},{IMG_W}] x "
           f"{len(xy)} keypoints, max |err| {err:.3g} (bound 1e-5), zero rows "
           f"identical (up to {n_zero} a frame); "
           + "; ".join(f"p={p} kernel {k * 1e3:.1f} us, plain {q * 1e3:.1f} us"
-                      for p, (k, q) in times.items()) + f" {clocks()}",
+                      for p, (k, q) in times.items())
+          + f"; bound by {bound[1]} {bound[0] * 1e3:.2f} us (p=24) {clocks()}",
           flush=True)
-    ms, plain_ms = times[24]
-    return {"name": "zncc_describe", "route": "cuda",
-            "source": "vloam_tpu_torch/kernels/csrc/zncc_describe.cu",
-            "replaces": "vloam_tpu/vision/features.py:411",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return kernel_row("zncc_describe", "zncc_describe.cu",
+                      "vloam_tpu/vision/features.py:411", err, *times[24],
+                      bound)
 
 
 def vloam_errors(res, poses, calib) -> dict:
@@ -432,15 +765,8 @@ def vloam_phase(cfg, frames, images, poses, calib):
         eng.push_polar(frames[k], images[k])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        for k in range(CHUNK, N_FRAMES):
-            eng.push_polar(frames[k], images[k])
-        torch.cuda.set_sync_debug_mode("default")
-    host = time.perf_counter() - t0
-    syncs = [str(w.message) for w in caught
-             if "synchronizing CUDA operation" in str(w.message)]
+    host, syncs = _sync_free(lambda k: eng.push_polar(frames[k], images[k]),
+                             range(CHUNK, N_FRAMES))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     clk = clocks()
@@ -461,8 +787,7 @@ def vloam_phase(cfg, frames, images, poses, calib):
           f"{err['VO']:.4f} m; min n32 over frames >= 1 {err['n32']}; "
           f"peak device memory {peak:.0f} MiB; host syncs in the timed "
           f"frames {len(syncs)} {clk}", flush=True)
-    want = {"select_rings": N_FRAMES, "ring_min2": 4 * N_FRAMES,
-            "zncc_describe": N_FRAMES}
+    want = lidar_launches(N_FRAMES, zncc_describe=N_FRAMES)
     if launches != want:
         fail(f"kernel launch counts {launches}, want {want}")
     if syncs:
@@ -495,12 +820,13 @@ def vloam_cpu_phase(cfg, frames, images, calib, res_gpu) -> None:
         fail("card and CPU trajectories of the combined engine disagree")
 
 
-_KERNELS = ("select_rings_kernel", "ring_min2_kernel", "zncc_describe_kernel")
+_KERNELS = ("select_rings_kernel", "ring_min2_kernel", "ring_min1_kernel",
+            "row_gather_kernel", "zncc_describe_kernel")
 
 
-def _profile(push, first: int) -> dict:
-    """torch.profiler over PROFILE_FRAMES frames pushed after `first`
-    frames: per frame, CUDA kernel launches, device kernels, device kernel
+def _profile(push, first: int, n: int = PROFILE_FRAMES) -> dict:
+    """torch.profiler over n frames pushed after `first` frames: per frame,
+    CUDA kernel launches, device kernels, device kernel
     time, host enqueue and wall time; and the device time per launch of
     each hand-written kernel."""
     from torch.autograd import DeviceType
@@ -509,7 +835,6 @@ def _profile(push, first: int) -> dict:
     for k in range(first):
         push(k)
     torch.cuda.synchronize()
-    n = PROFILE_FRAMES
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -536,20 +861,27 @@ def _profile(push, first: int) -> dict:
         "host_ms": host * 1e3 / n, "wall_ms": wall * 1e3 / n}
 
 
-def profile_phase(cfg, cfg_v, frames, images, calib) -> None:
-    from vloam_tpu_torch.lidar.loam_step import LoamEngine
+def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> None:
+    from vloam_tpu_torch.lidar.loam_step import BatchLoamEngine, LoamEngine
     from vloam_tpu_torch.vloam_step import VloamEngine
 
     lo = LoamEngine(cfg, chunk=PROFILE_FRAMES, device="cuda")
     vl = VloamEngine(cfg_v, calib, chunk=PROFILE_FRAMES, device="cuda")
+    ba = BatchLoamEngine(cfg, BATCH, chunk=BATCH_CHUNK, device="cuda")
     stats = {
         "LoamEngine": _profile(lambda k: lo.push_polar(frames[k]),
                                PROFILE_FRAMES),
         "VloamEngine": _profile(
-            lambda k: vl.push_polar(frames[k], images[k]), PROFILE_FRAMES)}
+            lambda k: vl.push_polar(frames[k], images[k]), PROFILE_FRAMES),
+        f"BatchLoamEngine x{BATCH} (per lockstep frame, frames "
+        f"{PROFILE_FRAMES}-{PROFILE_FRAMES + BATCH_CHUNK - 1}, chunk "
+        f"{BATCH_CHUNK})": _profile(
+            lambda k: _lockstep(ba, streams, [k]), PROFILE_FRAMES,
+            BATCH_CHUNK)}
     lo.finish()
     vl.finish()
-    print("[10 launches per frame] torch.profiler over frames "
+    ba.finish()
+    print("[13 launches per frame] torch.profiler over frames "
           f"{PROFILE_FRAMES}-{2 * PROFILE_FRAMES - 1}, chunk {PROFILE_FRAMES}"
           " (profiler on): " + "; ".join(
               f"{name} {s['launches']:.0f} kernel launches, "
@@ -571,25 +903,36 @@ def main() -> None:
     cfg = kitti_hdl64()
     cfg_v = cfg.replace(detach_VO_LO=False)
     calib = Calib()
-    frames, images, poses = make_frames()
+    frames, images, poses, streams, stream_poses = make_frames()
     elev = torch.tensor(np.radians(hdl64_elevations(64)),
                         dtype=torch.float32, device="cuda")
     ff = frame_features(cfg, frames[:3], polar_directions(elev, N_AZ))
     warm_up()
     k1 = k1_phase(cfg, ff)
-    k2 = k2_phase(ff)
+    k2, s1_min1, err_argmin2 = ring_phase(ff)
     del ff
-    res_gpu, _ = e2e_phase(cfg, frames, poses)
+    res_gpu, eng = e2e_phase(cfg, frames, poses)
     cpu_phase(cfg, frames, res_gpu)
     k3 = k3_phase(cfg_v, images)
-    res_v, launches = vloam_phase(cfg_v, frames, images, poses, calib)
+    res_v, launches_v = vloam_phase(cfg_v, frames, images, poses, calib)
     vloam_cpu_phase(cfg_v, frames, images, calib, res_v)
-    profile_phase(cfg, cfg_v, frames, images, calib)
-    # launches: the combined engine's run (phase 8), which drives all three
-    k1["launches"] = launches["select_rings"]
-    k2["launches"] = launches["ring_min2"]
-    k3["launches"] = launches["zncc_describe"]
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    outs_b, launches_b, beng = batch_phase(cfg, streams, stream_poses)
+    batch_cpu_phase(cfg, streams, outs_b)
+    s2 = s2_phase(eng, frames[N_FRAMES - 1], beng, streams)
+    del eng, beng
+    s1_argmin2 = ring_variants_phase(err_argmin2)
+    profile_phase(cfg, cfg_v, frames, images, calib, streams)
+    # launches: each kernel's count over the run of the path that drives it,
+    # with the counts set to 0 just before: the batch drive (phase 10), the
+    # combined engine (phase 8) for K3, the ring-variants entry point (phase
+    # 12) for ring_argmin2
+    for row in (k1, k2, s1_min1, s2):
+        row["launches"] = launches_b[row["name"]]
+    k3["launches"] = launches_v["zncc_describe"]
+    kernels = [k1, k2, k3, s2, s1_min1, s1_argmin2]
+    if any(not row["launches"] > 0 for row in kernels):
+        fail(f"a kernel was never launched on its path: {kernels}")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,14 @@ needs JAX.)
   [375, 1242] image and 2048 keypoints, p = 24 and 16, with zero rows
   (the 1e-3 floor) in the same places, on keypoints at the image's corners
   (clipping) and on a constant patch.
+- S2 row_gather: bit-identical to table[idx] at both map row widths and at
+  widths below, at and above a warp of 16-byte words, with repeated and
+  boundary rows and a row count that is not a multiple of the block; widths
+  that are not a multiple of 4 floats and int32 indices are refused.
+- S1 ring_min1 and ring_argmin2: every output identical to the plain
+  versions and to K2's, on the shapes and the ties of the K2 test.
+- The batch engine on the card against the same engine on the CPU, the
+  tolerances of the single engine's test.
 """
 
 import numpy as np
@@ -114,6 +122,99 @@ def test_ring_min2_kernel_matches_plain(cuda, rng, Q, C):
     assert int(got[1][3, 0]) == 2 and int(got[3][3, 0]) == 9
 
 
+@pytest.mark.parametrize("Q,C", [(768, 128), (1536, 512), (777, 5000)])
+def test_ring_min1_and_argmin2_kernels_match_plain_and_k2(cuda, rng, Q, C):
+    S = 64
+    slab = np.full((S, C, 3), ra.SENTINEL, np.float32)
+    for s in range(1, S):
+        n = int(rng.integers(1, C + 1))
+        slab[s, :n] = rng.uniform(-40, 40, (n, 3))
+    slab[3, 9] = slab[3, 2]  # duplicates: exact ties
+    slab[3, C - 1] = slab[3, 2]
+    q = rng.uniform(-40, 40, (Q, 3)).astype(np.float32)
+    q[0] = slab[3, 2]
+    q_t = torch.from_numpy(q).to(cuda)
+    slab_t = torch.from_numpy(np.ascontiguousarray(
+        slab.transpose(0, 2, 1))).to(cuda)
+    n1, n2 = kernels.LAUNCHES["ring_min1"], kernels.LAUNCHES["ring_argmin2"]
+    got1 = ra.ring_min1(q_t, slab_t)
+    got2 = kernels.ring_argmin2(q_t, slab_t)
+    k2 = ra.ring_min2(q_t, slab_t)
+    want = ra.ring_min2_plain(q_t, slab_t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ring_min1"] == n1 + 1
+    assert kernels.LAUNCHES["ring_argmin2"] == n2 + 1
+    for g, w in zip(got1, ra.ring_min1_plain(q_t, slab_t)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for g, w, k in zip(got2, want, k2):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, k)
+    assert int(got1[1][3, 0]) == 2 and int(got2[3][3, 0]) == 9
+
+
+@pytest.mark.parametrize("W,N", [(96, 16384), (48, 49152), (4, 1000),
+                                 (128, 777), (260, 513)])
+def test_row_gather_kernel_is_bit_identical(cuda, rng, W, N):
+    from vloam_tpu_torch.lidar import gridmap
+
+    nb = 1 << 12
+    table = torch.from_numpy(
+        rng.normal(size=(nb, W)).astype(np.float32)).to(cuda)
+    table[5] = float("nan")  # payload bits travel untouched
+    idx = rng.integers(0, nb, N)
+    idx[:5] = [0, nb - 1, 5, 5, 7]
+    idx = torch.from_numpy(idx).to(cuda)
+    n0 = kernels.LAUNCHES["row_gather"]
+    got = gridmap.row_gather(table, idx)
+    want = gridmap.row_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_gather"] == n0 + 1
+    assert got.shape == (N, W)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_row_gather_refuses_what_the_kernel_does_not_take(cuda):
+    table = torch.zeros((64, 6), device=cuda)
+    idx = torch.zeros((8,), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.row_gather(table, idx)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.row_gather(torch.zeros((64, 8), device=cuda), idx.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.row_gather(torch.zeros((64, 16), device=cuda)[:, ::2], idx)
+    assert kernels.row_gather(torch.zeros((64, 8), device=cuda),
+                              idx[:0]).shape == (0, 8)
+
+
+def test_batch_engine_on_card_matches_cpu(cuda):
+    from vloam_tpu_torch.config import tiny_test_profile
+    from vloam_tpu_torch.lidar.loam_step import (BatchLoamEngine,
+                                                 unpack_outputs)
+
+    cfg = tiny_test_profile()
+    scans = _xyz_drive(cfg)
+    streams = [scans, scans[::-1]]
+
+    def run(dev):
+        eng = BatchLoamEngine(cfg, 2, chunk=2, device=dev)
+        for k in range(len(scans)):
+            for b in range(2):
+                eng.push(b, streams[b][k])
+        return eng.finish()
+
+    kernels.reset_launches()
+    gpu = run(cuda)
+    n = 2 * len(scans)
+    assert kernels.LAUNCHES["row_gather"] == 4 * len(scans)
+    assert kernels.LAUNCHES["ring_min1"] == 2 * n
+    assert kernels.LAUNCHES["ring_min2"] == 2 * n
+    assert kernels.LAUNCHES["select_rings"] == n
+    cpu = run("cpu")
+    for b in range(2):
+        g, c = unpack_outputs(gpu[b]), unpack_outputs(cpu[b])
+        np.testing.assert_allclose(g["t_w_lo"], c["t_w_lo"], atol=2e-2)
+        np.testing.assert_allclose(g["t_w_mo"], c["t_w_mo"], atol=3e-2)
+
+
 def _xyz_drive(cfg):
     from vloam_tpu_torch.data import synthetic
 
@@ -145,8 +246,11 @@ def test_xyz_engine_on_card_matches_cpu(cuda):
         res[str(dev)] = (unpack_outputs(_run_engine(cfg, scans, dev)),
                          dict(kernels.LAUNCHES))
     (cpu, n_cpu), (gpu, n_gpu) = res["cpu"], res["cuda"]
-    assert n_cpu == {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0}
-    assert n_gpu == {"select_rings": 4, "ring_min2": 16, "zncc_describe": 0}
+    assert not any(n_cpu.values())
+    # per frame: K1 once, 2 association rounds (K2 surf, ring_min1 corner),
+    # 2 map probes and 2 inserts through row_gather
+    assert n_gpu == {"select_rings": 4, "ring_min2": 8, "ring_min1": 8,
+                     "row_gather": 16, "zncc_describe": 0, "ring_argmin2": 0}
     np.testing.assert_allclose(gpu["t_w_lo"], cpu["t_w_lo"], atol=2e-2)
     np.testing.assert_allclose(gpu["t_w_mo"], cpu["t_w_mo"], atol=3e-2)
 
@@ -220,8 +324,9 @@ def test_vloam_engine_on_card_ignores_tf32_settings(cuda):
 
     kernels.reset_launches()
     off, on = _tf32_on_and_off(run)
-    assert kernels.LAUNCHES == {"select_rings": 8, "ring_min2": 32,
-                                "zncc_describe": 8}
+    assert kernels.LAUNCHES == {"select_rings": 8, "ring_min2": 16,
+                                "ring_min1": 16, "row_gather": 32,
+                                "zncc_describe": 8, "ring_argmin2": 0}
     assert np.isfinite(off).all() and (off[1:, 31] > 0).all()
     np.testing.assert_array_equal(on, off)
 

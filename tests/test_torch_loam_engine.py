@@ -20,9 +20,11 @@ CPU at the small test profile (tests/test_pipeline.py::small_cfg).
 - convert.py round trip: bit-exact, dtypes kept.
 - solve_lo with deskew (distortion=True) against the reference, poses to
   1e-4 as on the default path.
-- importing the port leaves jax and the JAX package out of sys.modules, and
-  chip_smoke.py imports neither; the port's config and synthetic data equal
-  the JAX package's (fields equal, scans bit-identical); the kernel build
+- importing the port (the batch mapping and the measurement tools included)
+  leaves jax and the JAX package out of sys.modules, and neither
+  chip_smoke.py nor any module of the port imports them; the port's config
+  and synthetic data equal the JAX package's (fields equal, scans
+  bit-identical); the kernel build
   raises a clear error without nvcc instead of falling back; chip_smoke.py
   exits nonzero without a GPU.
 """
@@ -269,7 +271,11 @@ def test_port_never_imports_jax():
     """Neither jax nor the JAX package: the port runs without them."""
     code = ("import sys, vloam_tpu_torch, vloam_tpu_torch.lidar.loam_step, "
             "vloam_tpu_torch.convert, vloam_tpu_torch.kernels.build, "
-            "vloam_tpu_torch.config, vloam_tpu_torch.data.synthetic; "
+            "vloam_tpu_torch.config, vloam_tpu_torch.data.synthetic, "
+            "vloam_tpu_torch.lidar.batch_mapping, "
+            "vloam_tpu_torch.tools.timing, "
+            "vloam_tpu_torch.tools.profile_row_gather, "
+            "vloam_tpu_torch.tools.profile_ring_variants; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vloam_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -284,8 +290,21 @@ def test_chip_smoke_imports_only_the_port():
     mods |= {n.module for n in ast.walk(tree)
              if isinstance(n, ast.ImportFrom)}
     assert "vloam_tpu_torch.config" in mods
+    assert "vloam_tpu_torch.lidar.loam_step" in mods  # the batch engine's
+    assert "vloam_tpu_torch.tools" in mods  # the measurement entry points
     assert not [m for m in mods
                 if m.split(".")[0] in ("jax", "jaxlib", "vloam_tpu")]
+    # and no module of the port imports them either, the new ones included
+    for path in (REPO / "vloam_tpu_torch").rglob("*.py"):
+        sub = ast.parse(path.read_text())
+        names = {a.name for n in ast.walk(sub) if isinstance(n, ast.Import)
+                 for a in n.names}
+        names |= {n.module for n in ast.walk(sub)
+                  if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert not [m for m in names if m and m.split(".")[0] in
+                    ("jax", "jaxlib", "vloam_tpu")], path
+    assert (REPO / "vloam_tpu_torch/lidar/batch_mapping.py").exists()
+    assert (REPO / "vloam_tpu_torch/tools/profile_row_gather.py").exists()
 
 
 @pytest.mark.parametrize("profile", ["kitti_hdl64", "tiny_test_profile"])

@@ -182,16 +182,16 @@ def test_engine_rejects_what_is_not_ported(xyz_drive):
 
     calib = xyz_drive[0]
     with pytest.raises(NotImplementedError, match="mesh"):
-        tvs.VloamEngine(CFG, calib, mesh=object())
+        tvs.VloamEngine(CFG, calib, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="map_callback"):
-        tvs.VloamEngine(CFG, calib, map_callback=print)
+        tvs.VloamEngine(CFG, calib, map_callback=print, device="cpu")
     for option in ({"clahe": True}, {"keypoint_nms": True},
                    {"optical_flow_match": True}, {"lowtex_fallback": True},
                    {"detector": "orb"}, {"descriptor": "orb"},
                    {"matcher": "flann"}):
         cfg = CFG.replace(vo=dataclasses.replace(CFG.vo, **option))
         with pytest.raises(NotImplementedError, match=next(iter(option))):
-            tvs.VloamEngine(cfg, calib)
+            tvs.VloamEngine(cfg, calib, device="cpu")
     # a camera yawed outside the decoded polar wedge is refused loudly
     yawed = type(calib)()
     yawed.__dict__.update(calib.__dict__)
@@ -200,9 +200,9 @@ def test_engine_rejects_what_is_not_ported(xyz_drive):
     T[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) @ T[:3, :3]
     yawed.imu_T_cam0 = T
     with pytest.raises(ValueError, match="polar_fov_fraction"):
-        tvs.VloamEngine(CFG, yawed)
+        tvs.VloamEngine(CFG, yawed, device="cpu")
     with pytest.raises(ValueError, match="mix"):
-        eng = tvs.VloamEngine(CFG, calib)
+        eng = tvs.VloamEngine(CFG, calib, device="cpu")
         eng.push(np.zeros((10, 3), np.float32), np.zeros((96, 320)))
         eng.push_polar(np.zeros((64, 900), np.uint16), np.zeros((96, 320)))
 

@@ -3,11 +3,11 @@
 The system has no weights; its recurrent state (ring slabs, poses, both
 map grids, the frame counter, and in the combined engine the previous
 frame's keypoints, descriptors, image and depth grid) is what a run carries.
-These helpers move a LoamState, or a VloamEngine's (VisionLoState,
-MapState) pair, across by field name, so this module needs neither
-package's classes from the other side: a JAX state whose leaves were made
-numpy (``jax.tree.map(np.asarray, state)``) goes in, the port's state comes
-out, and the reverse gives the port's state with numpy leaves.
+These helpers move a LoamState, a BatchLoamState, or a VloamEngine's
+(VisionLoState, MapState) pair, across by field name, so this module needs
+neither package's classes from the other side: a JAX state whose leaves were
+made numpy (``jax.tree.map(np.asarray, state)``) goes in, the port's state
+comes out, and the reverse gives the port's state with numpy leaves.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .lidar.batch_mapping import BatchFeatureGrid, BatchGridMap
 from .lidar.gridmap import FeatureGrid
-from .lidar.loam_step import LoamState
+from .lidar.loam_step import BatchLoamState, LoamState
 from .lidar.mapping import GridMap
 from .lidar.ring_assoc import RingSlab
 from .vision.depth_map import DepthGrid
@@ -54,20 +55,39 @@ def loam_state_from_numpy(tree, device) -> LoamState:
 def loam_state_to_numpy(st: LoamState) -> LoamState:
     """The port's LoamState -> the same tree with numpy leaves (field for
     field the JAX reference's LoamState layout)."""
-    def n(x):
-        return x.detach().cpu().numpy()
+    return _tree_to_numpy(st)
+
+
+def batch_state_from_numpy(tree, device) -> BatchLoamState:
+    """Any BatchLoamState-shaped tree with array leaves (JAX reference field
+    names, [B, ...] per-stream leaves and the flat [B*nb, 3*cap] map tables)
+    -> the port's BatchLoamState on `device`. Dtypes are kept."""
+    def t(x):
+        return torch.tensor(np.asarray(x), device=device)
 
     def grid(g):
-        return FeatureGrid(pts=n(g.pts), n_live=n(g.n_live))
+        return BatchFeatureGrid(pts=t(g.pts), n_live=t(g.n_live))
 
-    return LoamState(
-        corner_last=RingSlab(n(st.corner_last.xyz)),
-        surf_last=RingSlab(n(st.surf_last.xyz)),
-        cube=GridMap(corner=grid(st.cube.corner), surf=grid(st.cube.surf),
-                     center=n(st.cube.center)),
-        frame_idx=n(st.frame_idx),
-        **{k: n(getattr(st, k)) for k in _POSES},
+    return BatchLoamState(
+        corner_last=RingSlab(t(tree.corner_last.xyz)),
+        surf_last=RingSlab(t(tree.surf_last.xyz)),
+        gm=BatchGridMap(corner=grid(tree.gm.corner), surf=grid(tree.gm.surf),
+                        center=t(tree.gm.center)),
+        frame_idx=t(tree.frame_idx),
+        **{k: t(getattr(tree, k)) for k in _POSES},
     )
+
+
+def batch_state_to_numpy(st: BatchLoamState) -> BatchLoamState:
+    """The port's BatchLoamState -> the same tree with numpy leaves (field
+    for field the JAX reference's BatchLoamState layout)."""
+    return _tree_to_numpy(st)
+
+
+def _tree_to_numpy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return type(x)(*(_tree_to_numpy(y) for y in x))
 
 
 def _cube_from(cube, device) -> GridMap:
@@ -100,12 +120,4 @@ def vloam_state_from_numpy(tree, device) -> tuple[VisionLoState, MapState]:
 def vloam_state_to_numpy(vstate: VisionLoState, mstate: MapState):
     """The port's (VisionLoState, MapState) -> the same trees with numpy
     leaves (field for field the JAX reference's layout)."""
-    def n(x):
-        return x.detach().cpu().numpy()
-
-    def tree(x):
-        if isinstance(x, torch.Tensor):
-            return n(x)
-        return type(x)(*(tree(y) for y in x))
-
-    return tree(vstate), tree(mstate)
+    return _tree_to_numpy(vstate), _tree_to_numpy(mstate)

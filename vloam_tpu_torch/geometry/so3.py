@@ -149,10 +149,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def point_jacobian(q: torch.Tensor, rp: torch.Tensor) -> torch.Tensor:
     """d/d(omega, tau) at 0 of R(q ⊗ exp(omega)) p + t + tau, given
-    rp = R(q) p [B, 3]: [-[rp]x R(q) | I] as [B, 3, 6] (the local
-    parameterization of the LM retractions)."""
+    rp = R(q) p [..., B, 3]: [-[rp]x R(q) | I] as [..., B, 3, 6] (the local
+    parameterization of the LM retractions). q is [4], or [..., 1, 4] with
+    rp's leading axes."""
     eye = torch.eye(3, dtype=rp.dtype, device=rp.device).expand(
-        rp.shape[0], 3, 3)
+        rp.shape[:-1] + (3, 3))
     return torch.cat([-matmul(skew(rp), quat_to_matrix(q)), eye], dim=-1)
 
 

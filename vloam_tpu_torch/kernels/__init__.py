@@ -6,13 +6,19 @@ K2 ring_min2     (csrc/ring_min2.cu)    <- ring_assoc.py::_ring_min2_kernel
                  (per-ring min-2 behind LO association)
 K3 zncc_describe (csrc/zncc_describe.cu) <- vision/features.py::
                  _describe_zncc_pallas (ZNCC patch descriptors)
+S1 ring_min1, ring_argmin2 (csrc/ring_min1.cu) <- scripts/
+                 profile_ring_variants.py::_kern_min1, _kern_argmin (the
+                 min-only reduction under corner association; K2's outputs
+                 by two argmin passes)
+S2 row_gather    (csrc/row_gather.cu)   <- scripts/profile_pallas_gather.py::
+                 make_pallas_gather[_tiled] (the map's bucket-row gather)
 
 The wrappers here accept CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate outputs with torch.empty, launch on PyTorch's
 current stream and raise if the launch is refused. The CPU dispatch to the
 plain PyTorch versions lives in the callers (lidar/scan_registration.py,
-lidar/ring_assoc.py, vision/features.py) and is taken only for CPU
-tensors.
+lidar/ring_assoc.py, lidar/gridmap.py, vision/features.py) and is taken
+only for CPU tensors.
 
 ``LAUNCHES`` counts launches per kernel; each wrapper adds one exactly
 where its kernel is launched.
@@ -24,7 +30,8 @@ import torch
 
 from . import build
 
-LAUNCHES = {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0}
+LAUNCHES = {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0,
+            "row_gather": 0, "ring_min1": 0, "ring_argmin2": 0}
 
 
 def reset_launches() -> None:
@@ -49,35 +56,88 @@ def _check(lib, err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
-def ring_min2(queries: torch.Tensor, slab_t: torch.Tensor):
-    """K2 on the card: queries [Q, 3] f32, slab_t [S, 3, C] f32 ->
-    (dmin [S, Q] f32, amin [S, Q] int32, d2 [S, Q] f32, a2 [S, Q] int32)."""
+def _ring_reduce(name: str, n_out: int, queries: torch.Tensor,
+                 slab_t: torch.Tensor):
+    """Launch one of the per-ring reductions (vloam_<name>): queries [Q, 3]
+    f32, slab_t [S, 3, C] f32 -> n_out // 2 pairs of ([S, Q] f32 distance,
+    [S, Q] int32 slot)."""
     _require(queries, "queries", torch.float32, 2)
     _require(slab_t, "slab_t", torch.float32, 3)
     Q, S, C = queries.shape[0], slab_t.shape[0], slab_t.shape[2]
     if queries.shape[1] != 3 or slab_t.shape[1] != 3:
-        raise ValueError(f"ring_min2: bad shapes {queries.shape} "
+        raise ValueError(f"{name}: bad shapes {queries.shape} "
                          f"{slab_t.shape}")
     if C < 2:
-        raise ValueError("ring_min2: a ring needs at least 2 slots")
+        raise ValueError(f"{name}: a ring needs at least 2 slots")
     if queries.device != slab_t.device:
-        raise ValueError("ring_min2: inputs on different devices")
+        raise ValueError(f"{name}: inputs on different devices")
     lib = build.load()
     dev = queries.device
-    dmin = torch.empty((S, Q), dtype=torch.float32, device=dev)
-    amin = torch.empty((S, Q), dtype=torch.int32, device=dev)
-    d2 = torch.empty((S, Q), dtype=torch.float32, device=dev)
-    a2 = torch.empty((S, Q), dtype=torch.int32, device=dev)
+    outs = tuple(torch.empty((S, Q), device=dev,
+                             dtype=torch.int32 if k % 2 else torch.float32)
+                 for k in range(n_out))
     if Q == 0 or S == 0:
-        return dmin, amin, d2, a2
+        return outs
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vloam_ring_min2(
-            queries.data_ptr(), slab_t.data_ptr(), dmin.data_ptr(),
-            amin.data_ptr(), d2.data_ptr(), a2.data_ptr(), Q, S, C, stream)
-    _check(lib, err, "ring_min2")
-    LAUNCHES["ring_min2"] += 1
-    return dmin, amin, d2, a2
+        err = getattr(lib, f"vloam_{name}")(
+            queries.data_ptr(), slab_t.data_ptr(),
+            *(o.data_ptr() for o in outs), Q, S, C, stream)
+    _check(lib, err, name)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def ring_min2(queries: torch.Tensor, slab_t: torch.Tensor):
+    """K2 on the card: queries [Q, 3] f32, slab_t [S, 3, C] f32 ->
+    (dmin [S, Q] f32, amin [S, Q] int32, d2 [S, Q] f32, a2 [S, Q] int32)."""
+    return _ring_reduce("ring_min2", 4, queries, slab_t)
+
+
+def ring_min1(queries: torch.Tensor, slab_t: torch.Tensor):
+    """S1's min-only variant on the card: K2's inputs ->
+    (dmin [S, Q] f32, amin [S, Q] int32), equal to K2's first two outputs."""
+    return _ring_reduce("ring_min1", 2, queries, slab_t)
+
+
+def ring_argmin2(queries: torch.Tensor, slab_t: torch.Tensor):
+    """S1's argmin variant on the card: K2's inputs and K2's four outputs,
+    computed by two argmin passes with the winner's slot masked."""
+    return _ring_reduce("ring_argmin2", 4, queries, slab_t)
+
+
+def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """S2 on the card: table [NB, W] f32, idx [N] int64 -> table[idx]
+    [N, W] f32, bit-identical. W must be a multiple of 4 (rows move as
+    16-byte words). Every index must lie in [0, NB): values cannot be checked
+    here without waiting for the device, so callers clamp."""
+    _require(table, "table", torch.float32, 2)
+    _require(idx, "idx", torch.int64, 1)
+    NB, W = table.shape
+    N = idx.shape[0]
+    if W == 0 or W % 4:
+        raise ValueError(f"row_gather: row width {W} is not a positive "
+                         "multiple of 4 floats (rows move as 16-byte words)")
+    if table.data_ptr() % 16:
+        raise ValueError("row_gather: table is not 16-byte aligned")
+    if NB == 0 and N > 0:
+        raise ValueError("row_gather: empty table")
+    if N >= 2**31:
+        raise ValueError(f"row_gather: {N} rows do not fit the kernel's "
+                         "32-bit row count")
+    if table.device != idx.device:
+        raise ValueError("row_gather: inputs on different devices")
+    lib = build.load()
+    out = torch.empty((N, W), dtype=torch.float32, device=table.device)
+    if N == 0:
+        return out
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = lib.vloam_row_gather(table.data_ptr(), idx.data_ptr(),
+                                   out.data_ptr(), N, W, stream)
+    _check(lib, err, "row_gather")
+    LAUNCHES["row_gather"] += 1
+    return out
 
 
 def select_rings(curv: torch.Tensor, bf: torch.Tensor, counts: torch.Tensor,

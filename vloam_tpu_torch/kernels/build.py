@@ -24,8 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# -fmad=false: K2's distances must round like the plain PyTorch version
-# (separately rounded products and sums) for its argmins to match exactly.
+# -fmad=false: the ring reductions' distances (ring_min2.cu, ring_min1.cu)
+# must round like the plain PyTorch versions (separately rounded products and
+# sums) for their argmins to match exactly.
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
@@ -109,6 +110,12 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vloam_ring_min2.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.vloam_ring_min2.restype = i
+    lib.vloam_ring_min1.argtypes = [p, p, p, p, i, i, i, p]
+    lib.vloam_ring_min1.restype = i
+    lib.vloam_ring_argmin2.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.vloam_ring_argmin2.restype = i
+    lib.vloam_row_gather.argtypes = [p, p, p, i, i, p]
+    lib.vloam_row_gather.restype = i
     lib.vloam_select_rings.argtypes = [p, p, p, p, i, i, f, i, i, i, i, p]
     lib.vloam_select_rings.restype = i
     lib.vloam_zncc_describe.argtypes = [p, p, p, i, i, i, i, p]

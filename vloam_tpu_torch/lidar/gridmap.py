@@ -15,6 +15,9 @@ incrementally — nothing is rebuilt per frame.
 
 Functions return new FeatureGrid values and leave their inputs untouched,
 as the JAX reference's do.
+
+Both the probe and the insert fetch whole bucket rows by id: ``row_gather``,
+on CUDA the hand-written kernel kernels/csrc/row_gather.cu.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from .voxel import as_u32, hash_avalanche, _mul32
 
 SENTINEL = 1.0e6
@@ -49,6 +53,20 @@ class FeatureGrid(NamedTuple):
         return self.pts.shape[1] // 3
 
 
+def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch row gather: table [NB, W], idx [N] -> table[idx]."""
+    return table[idx]
+
+
+def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows table[idx] of a float32 bucket table [NB, W] for int64 row ids
+    idx [N], all in [0, NB). CPU tensors take row_gather_plain; CUDA tensors
+    launch kernels/csrc/row_gather.cu (or raise — there is no fallback)."""
+    if table.device.type == "cpu" and idx.device.type == "cpu":
+        return row_gather_plain(table, idx)
+    return kernels.row_gather(table, idx)
+
+
 def grid_create(n_buckets: int, cap: int, device) -> FeatureGrid:
     return FeatureGrid(
         pts=torch.full((n_buckets, 3 * cap), SENTINEL, dtype=torch.float32,
@@ -71,7 +89,7 @@ def grid_insert(g: FeatureGrid, p: torch.Tensor, mask: torch.Tensor,
     dev = p.device
     b = _bucket_of(p, cell, nb)  # [B]
     v = torch.floor(p.T / res).to(torch.int32)  # [3, B]
-    rows = g.pts[b]  # [B, 3*cap]
+    rows = row_gather(g.pts, b)  # [B, 3*cap]
     slab = rows.reshape(B, 3, cap).permute(1, 0, 2)  # [3, B, cap]
     sv = torch.floor(slab / res).to(torch.int32)
     dup = torch.any(torch.all(sv == v[:, :, None], dim=0), dim=-1)
@@ -130,7 +148,7 @@ def grid_gather(g: FeatureGrid, queries: torch.Tensor, cell: float):
                                      c[:, 1] + sy * off[:, 1],
                                      c[:, 2] + sz * off[:, 2], nb))
     buckets = torch.stack(hs, dim=1)  # [Q, 8]
-    rows = g.pts[buckets]  # [Q, 8, 3*cap]
+    rows = row_gather(g.pts, buckets.reshape(-1))  # [8Q, 3*cap]
     planar = rows.reshape(q, 8, 3, cap)
     return planar.permute(2, 0, 1, 3).reshape(3, q, 8 * cap)
 

@@ -1,5 +1,6 @@
 """Device-resident LOAM step: scanreg + LO + MO per frame (port of
-vloam_tpu/lidar/loam_step.py, single-device main path).
+vloam_tpu/lidar/loam_step.py, single-device main path and the lockstep
+batch engine).
 
 All recurrent state (last feature slabs, f2f/world poses, the grid map, the
 odom->map offset) stays on the device as a LoamState of tensors. A chunk of
@@ -9,6 +10,12 @@ each frame appends one packed OUT_DIM row that stays on the device until
 reads a device value back to the host, so on CUDA the host only queues
 kernels; every decision the reference makes with lax.cond or jnp.where is a
 ``torch.where`` here.
+
+The batch half (BatchLoamState, BatchLoamEngine) runs B independent
+sequences in lockstep. Where the reference vmaps its single-stream stages
+(registration, LO, the voxel filters) this port loops over the streams; the
+mapping stage is flat-batched over all of them (batch_mapping.py), so its
+launches are paid once per lockstep frame.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 
 from ..data.synthetic import hdl64_elevations, pad_scan
 from ..geometry import so3
+from .batch_mapping import BatchGridMap, batch_map_evict, batch_solve_mapping
 from .mapping import GridMap, solve_mapping
 from .odometry import solve_lo
 from .ring_assoc import RingSlab
@@ -148,10 +156,20 @@ def loam_frame_step_feats(state: LoamState, feats, prior_q, prior_t,
     return new_state, out
 
 
+def _dequantize(scans: torch.Tensor, scale: float) -> torch.Tensor:
+    """int16 staged scans (x scale metres per unit) -> float32 metres;
+    float32 scans pass through."""
+    if scans.dtype == torch.float32:
+        return scans
+    return scans.to(torch.float32) * scale
+
+
 def loam_run_chunk(state: LoamState, scans: torch.Tensor, n_pts: torch.Tensor,
-                   prior_q, prior_t, use_prior, cfg):
-    """Advance F frames from float32 xyz buffers [F, max_points, 3];
-    returns (state, outs [F, OUT_DIM])."""
+                   prior_q, prior_t, use_prior, cfg, scale: float = 1.0):
+    """Advance F frames from xyz buffers [F, max_points, 3], float32 or
+    int16 (x scale, dequantized on the device); returns (state, outs
+    [F, OUT_DIM])."""
+    scans = _dequantize(scans, scale)
     outs = []
     for f in range(scans.shape[0]):
         state, out = loam_frame_step(state, scans[f], n_pts[f], prior_q[f],
@@ -176,6 +194,51 @@ def loam_run_chunk_polar(state: LoamState, ranges: torch.Tensor,
     return state, torch.stack(outs)
 
 
+def engine_device(device) -> torch.device:
+    """The device an engine's state lives on. The engines run on the card
+    unless the caller names another device, and asking for the card where
+    there is none raises: nothing carries on on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for (the engines' default) but "
+            "torch.cuda.is_available() is false; pass device=\"cpu\" to run "
+            "the plain PyTorch versions on the CPU")
+    return dev
+
+
+def stage_scan(points: np.ndarray, cap: int, quantize_mm: float):
+    """Host staging of one scan [n, 3] into a [cap, 3] buffer: float32, or
+    with quantize_mm > 0 int16 in that many millimetres per unit (5 -> 5 mm
+    resolution, coordinates clamped at +-163.8 m), which halves the upload.
+    Returns (buffer, n kept)."""
+    if quantize_mm <= 0:
+        return pad_scan(points, cap)
+    out = np.zeros((cap, 3), np.int16)
+    n = min(len(points), cap)
+    out[:n] = np.clip(points[:n] * (1000.0 / quantize_mm),
+                      -32767, 32767).astype(np.int16)
+    return out, n
+
+
+def _upload_polar(stacked: np.ndarray, device) -> torch.Tensor:
+    """Stacked range images (uint16, or pack12's uint8) -> device tensor;
+    uint16 travels as its int16 bit pattern (2 bytes/ray) and is widened to
+    int32 on the device."""
+    if stacked.dtype == np.uint16:
+        return _upload(stacked.view(np.int16), device).to(
+            torch.int32) & 0xFFFF
+    return _upload(stacked, device)
+
+
+def _polar_dirs(cfg, n_azimuth: int, elevations_deg, device) -> torch.Tensor:
+    """Unit ray directions [S, A, 3] of a range image's cells."""
+    ed = (elevations_deg if elevations_deg is not None
+          else hdl64_elevations(cfg.lidar.n_scans))
+    elev = torch.tensor(np.radians(ed), dtype=torch.float32, device=device)
+    return polar_directions(elev, n_azimuth)
+
+
 def _upload(x: np.ndarray, device) -> torch.Tensor:
     """Host array -> device tensor without blocking the host: on CUDA the
     copy goes through pinned memory and is queued on the current stream."""
@@ -189,14 +252,19 @@ class LoamEngine:
     """Host wrapper: chunked device-resident LOAM over a frame stream.
     Outputs stay on the device until `finish()` (one download).
 
-    device: where the state lives and every frame runs ("cuda" for the
-    hand-written kernels; "cpu" runs their plain PyTorch versions).
+    quantize_mm > 0 stages push() scans as int16 in that many millimetres
+    per unit (see stage_scan); the chunk dequantizes on the device.
+    device: where the state lives and every frame runs: the card by default
+    (the hand-written kernels), and without one the constructor raises;
+    "cpu" runs the kernels' plain PyTorch versions.
     pack12: stage push_polar images as 12-bit packed uint8 (see pack12())."""
 
-    def __init__(self, cfg, chunk: int = 8, device="cpu", pack12: bool = False):
+    def __init__(self, cfg, chunk: int = 8, quantize_mm: float = 0.0,
+                 device="cuda", pack12: bool = False):
         self.cfg = cfg
         self.chunk = chunk
-        self.device = torch.device(device)
+        self.quantize_mm = quantize_mm
+        self.device = engine_device(device)
         self.pack12 = pack12
         self.state = LoamState.create(cfg, self.device)
         self._outs: list[torch.Tensor] = []
@@ -219,9 +287,10 @@ class LoamEngine:
         # them would reorder frames relative to push order
         if self._pending_polar:
             raise ValueError("do not mix push() and push_polar()")
-        cap = self.cfg.lidar.max_points
-        self._pending_scans.append(pad_scan(points, cap)[0])
-        self._pending_n.append(min(len(points), cap))
+        buf, n = stage_scan(points, self.cfg.lidar.max_points,
+                            self.quantize_mm)
+        self._pending_scans.append(buf)
+        self._pending_n.append(n)
         if len(self._pending_scans) >= self.chunk:
             self._flush()
 
@@ -232,11 +301,8 @@ class LoamEngine:
         if self._pending_scans:
             raise ValueError("do not mix push() and push_polar()")
         if self._dirs is None:
-            ed = (elevations_deg if elevations_deg is not None
-                  else hdl64_elevations(self.cfg.lidar.n_scans))
-            elev = torch.tensor(np.radians(ed), dtype=torch.float32,
-                                device=self.device)
-            self._dirs = polar_directions(elev, range_img.shape[1])
+            self._dirs = _polar_dirs(self.cfg, range_img.shape[1],
+                                     elevations_deg, self.device)
         self._polar_scale = range_scale
         self._pending_polar.append(pack12(range_img) if self.pack12
                                    else range_img)
@@ -246,15 +312,8 @@ class LoamEngine:
     def _flush_polar(self):
         if not self._pending_polar:
             return
-        stacked = np.stack(self._pending_polar)
+        ranges = _upload_polar(np.stack(self._pending_polar), self.device)
         self._pending_polar = []
-        if stacked.dtype == np.uint16:
-            # uint16 travels as its int16 bit pattern (2 bytes/ray) and is
-            # widened on the device
-            ranges = _upload(stacked.view(np.int16), self.device).to(
-                torch.int32) & 0xFFFF
-        else:
-            ranges = _upload(stacked, self.device)
         pq, pt, up = self._priors(ranges.shape[0])
         self.state, outs = loam_run_chunk_polar(
             self.state, ranges, self._dirs, pq, pt, up, self.cfg,
@@ -269,7 +328,7 @@ class LoamEngine:
         self._pending_scans, self._pending_n = [], []
         pq, pt, up = self._priors(scans.shape[0])
         self.state, outs = loam_run_chunk(self.state, scans, ns, pq, pt, up,
-                                          self.cfg)
+                                          self.cfg, self.quantize_mm / 1000.0)
         self._outs.append(outs)
 
     def finish(self) -> np.ndarray:
@@ -279,6 +338,280 @@ class LoamEngine:
         if not self._outs:
             return np.zeros((0, OUT_DIM), np.float32)
         return torch.cat(self._outs).cpu().numpy()
+
+
+class BatchLoamState(NamedTuple):
+    """B concurrent sequences' LOAM state. Per-stream recurrent state is
+    stacked ([B, ...] leaves); the map lives in the flat-batched grid
+    (batch_mapping.BatchGridMap: the stream axis is folded into the
+    hash-bucket axis, so the mapping stage's gathers, sorts and scatters are
+    single flat ops over all streams)."""
+
+    corner_last: RingSlab  # xyz [B, S, C, 3]
+    surf_last: RingSlab
+    q_f2f: torch.Tensor  # [B, 4]
+    t_f2f: torch.Tensor  # [B, 3]
+    q_w: torch.Tensor  # [B, 4]
+    t_w: torch.Tensor  # [B, 3]
+    gm: BatchGridMap
+    q_wmap_wodom: torch.Tensor  # [B, 4]
+    t_wmap_wodom: torch.Tensor  # [B, 3]
+    frame_idx: torch.Tensor  # [] int32 (streams advance in lockstep)
+
+    @staticmethod
+    def create(cfg, batch: int, device) -> "BatchLoamState":
+        sr = cfg.scanreg
+        S = cfg.lidar.n_scans
+
+        def slab(cap):
+            xyz = RingSlab.empty(S, cap, device).xyz
+            return RingSlab(xyz.expand((batch,) + xyz.shape).contiguous())
+
+        def ident():
+            return so3.identity_quat(device).expand(batch, 4).contiguous()
+
+        def zeros3():
+            return torch.zeros((batch, 3), dtype=torch.float32, device=device)
+
+        return BatchLoamState(
+            corner_last=slab(sr.less_sharp_cap // S),
+            surf_last=slab(sr.less_flat_cap // S),
+            q_f2f=ident(), t_f2f=zeros3(), q_w=ident(), t_w=zeros3(),
+            gm=BatchGridMap.create(cfg.mapping, batch, device),
+            q_wmap_wodom=ident(), t_wmap_wodom=zeros3(),
+            frame_idx=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def _stack_tree(trees):
+    """Matching NamedTuple trees of tensors -> one tree of [B, ...] stacks."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return type(first)(*(_stack_tree(list(xs)) for xs in zip(*trees)))
+
+
+def _stream_of(tree, b: int):
+    """Stream b's slice (views) of a tree of [B, ...] tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree[b]
+    return type(tree)(*(_stream_of(x, b) for x in tree))
+
+
+def batch_frame_step_feats(state: BatchLoamState, feats, cfg, batch: int):
+    """One lockstep frame for B streams from stacked features (a
+    ScanFeatures tree of [B, ...] leaves); returns (new_state, out
+    [B, OUT_DIM]). Per-stream semantics match loam_frame_step_feats; LO and
+    the voxel filters run stream by stream (the reference vmaps them), the
+    mapping stage flat-batched (batch_mapping.batch_solve_mapping), and
+    eviction is deferred to chunk boundaries (batch_map_evict)."""
+    dev = state.q_w.device
+    m = cfg.mapping
+    initialized = state.frame_idx > 0
+
+    lo, stacks = [], []
+    for b in range(batch):
+        f = _stream_of(feats, b)
+        lo.append(solve_lo(f.sharp, f.flat,
+                           _stream_of(state.corner_last, b),
+                           _stream_of(state.surf_last, b),
+                           state.q_f2f[b], state.t_f2f[b], cfg.lo))
+        c_xyz, _, _, c_m = voxel_downsample(
+            f.less_sharp.xyz, f.less_sharp.mask, m.line_resolution,
+            m.corner_stack_cap)
+        s_xyz, _, _, s_m = voxel_downsample(
+            f.less_flat.xyz, f.less_flat.mask, m.plane_resolution,
+            m.surf_stack_cap)
+        stacks.append((c_xyz, c_m, s_xyz, s_m))
+    q_s, t_s, n_c, n_s = (torch.stack(x) for x in zip(*lo))
+    c_xyz, c_m, s_xyz, s_m = (torch.stack(x) for x in zip(*stacks))
+
+    # frame 0 runs the LO solve too and selects the identity, as
+    # loam_frame_step_feats does
+    q = torch.where(initialized, q_s, so3.identity_quat(dev))
+    t = torch.where(initialized, t_s, 0.0)
+    n_c = torch.where(initialized, n_c, 0)
+    n_s = torch.where(initialized, n_s, 0)
+
+    q_w = torch.where(initialized,
+                      so3.quat_normalize(so3.quat_multiply(state.q_w, q)),
+                      state.q_w)
+    t_w = torch.where(initialized, state.t_w + so3.quat_rotate(state.q_w, t),
+                      state.t_w)
+
+    q_pred = so3.quat_normalize(so3.quat_multiply(state.q_wmap_wodom, q_w))
+    t_pred = state.t_wmap_wodom + so3.quat_rotate(state.q_wmap_wodom, t_w)
+
+    gm, q_m, t_m = batch_solve_mapping(state.gm, c_xyz, c_m, s_xyz, s_m,
+                                       q_pred, t_pred, m, batch)
+    if cfg.lo.mapping_skip_frame == 1:
+        mapped = torch.ones((), dtype=torch.bool, device=dev)
+    else:
+        # streams advance in lockstep, so the skip predicate is scalar; the
+        # solve runs anyway and `mapped` selects it (no host read)
+        mapped = (state.frame_idx % cfg.lo.mapping_skip_frame) == 0
+        gm = _select_tree(mapped, gm, state.gm)
+        q_m = torch.where(mapped, q_m, q_pred)
+        t_m = torch.where(mapped, t_m, t_pred)
+
+    q_off = so3.quat_normalize(
+        so3.quat_multiply(q_m, so3.quat_conjugate(q_w)))
+    t_off = t_m - so3.quat_rotate(q_off, t_w)
+    q_wmap_wodom = torch.where(mapped, q_off, state.q_wmap_wodom)
+    t_wmap_wodom = torch.where(mapped, t_off, state.t_wmap_wodom)
+
+    new_state = BatchLoamState(
+        corner_last=feats.less_sharp_slab,
+        surf_last=feats.less_flat_slab,
+        q_f2f=q, t_f2f=t, q_w=q_w, t_w=t_w,
+        gm=gm, q_wmap_wodom=q_wmap_wodom, t_wmap_wodom=t_wmap_wodom,
+        frame_idx=state.frame_idx + 1,
+    )
+    counts = torch.stack([n_c, n_s, mapped.to(n_c.dtype).expand(batch)],
+                         dim=1).to(torch.float32)
+    out = torch.cat([q, t, q_w, t_w, q_m, t_m, counts],
+                    dim=1).to(torch.float32)
+    return new_state, out
+
+
+def _batch_chunk_epilogue(state: BatchLoamState, cfg,
+                          batch: int) -> BatchLoamState:
+    """Chunk-boundary map maintenance: recenter the streams that crossed a
+    cube boundary (see batch_mapping.batch_map_evict)."""
+    t_map = state.t_wmap_wodom + so3.quat_rotate(state.q_wmap_wodom,
+                                                 state.t_w)
+    return state._replace(gm=batch_map_evict(state.gm, t_map, cfg.mapping,
+                                             batch))
+
+
+def loam_run_chunk_batch(states: BatchLoamState, scans: torch.Tensor,
+                         n_pts: torch.Tensor, cfg, scale: float = 1.0):
+    """Advance B independent sequences x F frames in lockstep.
+
+    scans [B, F, N, 3] float32 or int16 (x scale, dequantized on the
+    device); n_pts [B, F]. Returns (states, outs [B, F, OUT_DIM])."""
+    scans = _dequantize(scans, scale)
+    B = scans.shape[0]
+    outs = []
+    for f in range(scans.shape[1]):
+        feats = _stack_tree([register_scan(scans[b, f], n_pts[b, f],
+                                           cfg.lidar, cfg.scanreg)
+                             for b in range(B)])
+        states, out = batch_frame_step_feats(states, feats, cfg, B)
+        outs.append(out)
+    return _batch_chunk_epilogue(states, cfg, B), torch.stack(outs, dim=1)
+
+
+def loam_run_chunk_batch_polar(states: BatchLoamState, ranges: torch.Tensor,
+                               dirs: torch.Tensor, cfg, scale: float = 0.005,
+                               packed: bool = False):
+    """Polar-ingest batch chunk: ranges [B, F, S, A] integer range images
+    (or [B, F, S, A//2*3] uint8 pack12 images when `packed`), dirs
+    [S, A, 3]. Returns (states, outs [B, F, OUT_DIM])."""
+    B = ranges.shape[0]
+    outs = []
+    for f in range(ranges.shape[1]):
+        r_b = unpack12(ranges[:, f]) if packed else ranges[:, f]
+        feats = _stack_tree([register_scan_polar(r_b[b], dirs, cfg.lidar,
+                                                 cfg.scanreg, scale)
+                             for b in range(B)])
+        states, out = batch_frame_step_feats(states, feats, cfg, B)
+        outs.append(out)
+    return _batch_chunk_epilogue(states, cfg, B), torch.stack(outs, dim=1)
+
+
+def batch_states(cfg, batch: int, device) -> BatchLoamState:
+    """B fresh lockstep sequences sharing one flat-batched map."""
+    return BatchLoamState.create(cfg, batch, device)
+
+
+class BatchLoamEngine:
+    """Run B sequences concurrently on one device. Frames are pushed per
+    stream and a chunk runs once every stream holds `chunk` frames; all
+    streams must have equal length (pad short ones with repeated last frames
+    and ignore the tail outputs). Outputs stay on the device until
+    `finish()`.
+
+    quantize_mm, device and pack12 as in LoamEngine: the card by default,
+    and the constructor raises where there is none."""
+
+    def __init__(self, cfg, batch: int, chunk: int = 4,
+                 quantize_mm: float = 0.0, pack12: bool = False,
+                 device="cuda"):
+        self.cfg = cfg
+        self.batch = batch
+        self.chunk = chunk
+        self.quantize_mm = quantize_mm
+        self.pack12 = pack12
+        self.device = engine_device(device)
+        self.states = batch_states(cfg, batch, self.device)
+        self._outs: list[torch.Tensor] = []
+        self._scans: list[list] = [[] for _ in range(batch)]
+        self._ns: list[list] = [[] for _ in range(batch)]
+        self._polar: list[list] = [[] for _ in range(batch)]
+        self._dirs = None
+        self._polar_scale = 0.005
+
+    def push_polar(self, stream: int, range_img: np.ndarray,
+                   range_scale: float = 0.005,
+                   elevations_deg: np.ndarray | None = None):
+        """Push one quantized range image [n_scans, n_azimuth] uint16 onto
+        `stream` (the smallest upload: 2 bytes/ray)."""
+        if any(self._scans):
+            raise ValueError("do not mix push() and push_polar()")
+        if self._dirs is None:
+            self._dirs = _polar_dirs(self.cfg, range_img.shape[1],
+                                     elevations_deg, self.device)
+        self._polar_scale = range_scale
+        self._polar[stream].append(pack12(range_img) if self.pack12
+                                   else range_img)
+        if all(len(s) >= self.chunk for s in self._polar):
+            self._flush_polar()
+
+    def _flush_polar(self):
+        f = min(len(s) for s in self._polar)
+        if f == 0:
+            return
+        ranges = _upload_polar(
+            np.stack([np.stack(s[:f]) for s in self._polar]), self.device)
+        self._polar = [s[f:] for s in self._polar]
+        self.states, outs = loam_run_chunk_batch_polar(
+            self.states, ranges, self._dirs, self.cfg, self._polar_scale,
+            packed=self.pack12)
+        self._outs.append(outs)
+
+    def push(self, stream: int, points: np.ndarray):
+        """Push one scan [n, 3] float32 (sensor frame) onto `stream`."""
+        if any(self._polar):
+            raise ValueError("do not mix push() and push_polar()")
+        buf, n = stage_scan(points, self.cfg.lidar.max_points,
+                            self.quantize_mm)
+        self._scans[stream].append(buf)
+        self._ns[stream].append(n)
+        if all(len(s) >= self.chunk for s in self._scans):
+            self._flush()
+
+    def _flush(self):
+        f = min(len(s) for s in self._scans)
+        if f == 0:
+            return
+        scans = _upload(np.stack([np.stack(s[:f]) for s in self._scans]),
+                        self.device)
+        ns = _upload(np.asarray([n[:f] for n in self._ns], np.int64),
+                     self.device)
+        self._scans = [s[f:] for s in self._scans]
+        self._ns = [n[f:] for n in self._ns]
+        self.states, outs = loam_run_chunk_batch(
+            self.states, scans, ns, self.cfg, self.quantize_mm / 1000.0)
+        self._outs.append(outs)
+
+    def finish(self) -> np.ndarray:
+        """[B, N, OUT_DIM] packed results (one download)."""
+        self._flush()
+        self._flush_polar()
+        if not self._outs:
+            return np.zeros((self.batch, 0, OUT_DIM), np.float32)
+        return torch.cat(self._outs, dim=1).cpu().numpy()
 
 
 def polar_to_xyz_cols(ranges: torch.Tensor, elev_rad: torch.Tensor,

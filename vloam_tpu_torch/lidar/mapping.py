@@ -54,6 +54,15 @@ def _cube_coord(p: torch.Tensor, cube_size: float) -> torch.Tensor:
     return torch.floor((p + cube_size / 2.0) / cube_size).to(torch.int32)
 
 
+def window_half_extent(cfg, device) -> torch.Tensor:
+    """[3] half extents of the map window around its cube center, built on
+    the device (a host tensor would be a copy per call)."""
+    half = [cfg.cube_width * cfg.cube_size / 2.0,
+            cfg.cube_height * cfg.cube_size / 2.0,
+            cfg.cube_depth * cfg.cube_size / 2.0]
+    return sum(h * so3.unit_vector(3, i, device) for i, h in enumerate(half))
+
+
 def _gram(v: torch.Tensor) -> torch.Tensor:
     """Per query the 3x3 Gram matrix of its k points, planar v [3, Q, k] ->
     [Q, 3, 3], as a broadcast product and a sum (no cuBLAS call, so no TF32
@@ -62,10 +71,16 @@ def _gram(v: torch.Tensor) -> torch.Tensor:
 
 
 def _corner_terms(stack_xyz, stack_mask, cand, x, cfg):
-    """Line features from 5-NN covariance (reference :472-517) over the
+    """Line features of the stack points at pose x = [q, t] over the
     pre-gathered planar candidates `cand` [3, Q, 8*cap]."""
-    q, t = x[:4], x[4:]
-    p_w = so3.quat_rotate(q, stack_xyz) + t
+    return corner_fit(so3.quat_rotate(x[:4], stack_xyz) + x[4:], stack_mask,
+                      cand, cfg)
+
+
+def corner_fit(p_w, stack_mask, cand, cfg):
+    """Line features from 5-NN covariance (reference :472-517) of world
+    points p_w [Q, 3] among their candidates `cand` [3, Q, 8*cap]. Every row
+    is fitted on its own, so Q may hold several streams' points."""
     d, near = knn_among_planar(cand, p_w, k=cfg.knn)  # near [3, Q, k]
     ok = stack_mask & (d[:, cfg.knn - 1] < cfg.neighbor_radius_sq)
     center_p = torch.mean(near, dim=2)  # [3, Q]
@@ -83,10 +98,15 @@ def _corner_terms(stack_xyz, stack_mask, cand, x, cfg):
 
 
 def _surf_terms(stack_xyz, stack_mask, cand, x, cfg):
+    """Plane features of the stack points at pose x = [q, t]."""
+    return surf_fit(so3.quat_rotate(x[:4], stack_xyz) + x[4:], stack_mask,
+                    cand, cfg)
+
+
+def surf_fit(p_w, stack_mask, cand, cfg):
     """Plane features from a 5-NN least-squares fit A n = -1 (reference
-    :538-581), planar [3, Q, k] throughout."""
-    q, t = x[:4], x[4:]
-    p_w = so3.quat_rotate(q, stack_xyz) + t
+    :538-581) of world points p_w [Q, 3], planar [3, Q, k] throughout; rows
+    are independent, as in corner_fit."""
     d, near = knn_among_planar(cand, p_w, k=cfg.knn)  # near [3, Q, k]
     ok = stack_mask & (d[:, cfg.knn - 1] < cfg.neighbor_radius_sq)
     AtA = _gram(near)
@@ -117,34 +137,39 @@ def _surf_terms(stack_xyz, stack_mask, cand, x, cfg):
 
 
 def _retract(x, delta):
-    q = so3.quat_normalize(
-        so3.quat_multiply(x[:4], so3.quat_from_axis_angle(delta[:3])))
-    return torch.cat([q, x[4:] + delta[3:]])
+    """x [..., 7] = [q, t] moved by the local step delta [..., 6]."""
+    q = so3.quat_normalize(so3.quat_multiply(
+        x[..., :4], so3.quat_from_axis_angle(delta[..., :3])))
+    return torch.cat([q, x[..., 4:] + delta[..., 3:]], dim=-1)
 
 
 def mo_residual(pw, is_edge, A, Bp, DE, NH, NOOD):
-    """The fused mapping residual [B, 3] at world points pw [B, 3]: edge
-    rows point-to-line, plane rows pw . n + 1/|n| in slot 0 (zeros in
-    slots 1-2)."""
-    r_edge = so3.cross(pw - A, pw - Bp) / torch.clamp(DE, min=_EPS)[:, None]
-    r_plane = torch.sum(pw * NH, dim=-1, keepdim=True) + NOOD[:, None]
+    """The fused mapping residual [..., B, 3] at world points pw
+    [..., B, 3]: edge rows point-to-line, plane rows pw . n + 1/|n| in slot
+    0 (zeros in slots 1-2)."""
+    r_edge = so3.cross(pw - A, pw - Bp) / torch.clamp(DE, min=_EPS)[..., None]
+    r_plane = torch.sum(pw * NH, dim=-1, keepdim=True) + NOOD[..., None]
     return torch.where(is_edge, r_edge, F.pad(r_plane, (0, 2)))
 
 
 def mo_families(cp, is_edge, A, Bp, DE, NH, NOOD, w):
     """make_family(x) for the fused mapping residual over stack points
-    cp [B, 3], linearized in closed form."""
+    cp [..., B, 3] (is_edge [B, 1]), linearized in closed form at x [..., 7].
+    With leading stream axes each stream has its own pose and its own terms
+    (the closed-form counterpart of the reference's vmapped jacfwd,
+    batch_mapping._lm_solve_batched)."""
     # d r / d pw per row: edge -[A - B]x / |A - B|, plane n^T in row 0
-    d_res = torch.where(is_edge[:, :, None],
+    d_res = torch.where(is_edge[..., None],
                         -so3.skew(A - Bp)
-                        / torch.clamp(DE, min=_EPS)[:, None, None],
-                        F.pad(NH[:, None, :], (0, 0, 0, 2)))
+                        / torch.clamp(DE, min=_EPS)[..., None, None],
+                        F.pad(NH[..., None, :], (0, 0, 0, 2)))
 
     def make_family(xx):
-        rp = so3.quat_rotate(xx[:4], cp)
+        q, t = xx[..., None, :4], xx[..., None, 4:]
+        rp = so3.quat_rotate(q, cp)
         return ResidualFamily(
-            mo_residual(rp + xx[4:], is_edge, A, Bp, DE, NH, NOOD),
-            so3.matmul(d_res, so3.point_jacobian(xx[:4], rp)), w)
+            mo_residual(rp + t, is_edge, A, Bp, DE, NH, NOOD),
+            so3.matmul(d_res, so3.point_jacobian(q, rp)), w)
 
     return make_family
 
@@ -211,12 +236,7 @@ def map_update(grid_map: GridMap, corner_stack_xyz, corner_stack_mask,
 
     center = _cube_coord(t_w, cfg.cube_size)
     changed = torch.any(center != grid_map.center)
-    # built on the device: a host tensor would be a copy per frame
-    half = [cfg.cube_width * cfg.cube_size / 2.0,
-            cfg.cube_height * cfg.cube_size / 2.0,
-            cfg.cube_depth * cfg.cube_size / 2.0]
-    radius = sum(h * so3.unit_vector(3, i, t_w.device)
-                 for i, h in enumerate(half))
+    radius = window_half_extent(cfg, t_w.device)
     c_w = center.to(torch.float32) * cfg.cube_size
 
     # The evict runs every frame and `changed` selects it, so the frame loop

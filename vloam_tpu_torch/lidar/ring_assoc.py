@@ -8,7 +8,9 @@ rings != ring0 within +-nearby_scan, and the surf same-ring point is the
 second minimum on ring0. ``ring_min2`` computes, per ring and per query,
 the (min, argmin, second-min, second-argmin) of the exact f32 (q-c)^2
 distances without materializing the [Q, C] distance block; on CUDA it is
-the hand-written kernel kernels/csrc/ring_min2.cu (K2).
+the hand-written kernel kernels/csrc/ring_min2.cu (K2). ``ring_min1`` is
+its min-only half (kernels/csrc/ring_min1.cu), which is all the corner
+association reads.
 
 The JAX main path defaults to quantized, saturated distances (impl="mxu");
 the port holds association to the exact form, whose module-level
@@ -54,18 +56,13 @@ def first_argmin(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.amin(torch.where(x <= m, idx, _IBIG), dim=dim)
 
 
-def ring_min2_plain(queries: torch.Tensor, slab_t: torch.Tensor):
-    """Plain PyTorch per-ring (min, argmin, 2nd-min, 2nd-argmin).
-
-    queries [Q, 3] f32; slab_t [S, 3, C] f32 (coordinate-major ring slabs).
-    Returns (dmin [S, Q] f32, amin [S, Q] int32, d2 [S, Q] f32,
-    a2 [S, Q] int32); argmins are slots within the ring. Distances add as
-    (dx^2 + dy^2) + dz^2, each product and sum rounded (as K2 does), ties
-    go to the lowest slot and the second minimum excludes only the first
-    argmin's slot."""
+def _ring_blocks(queries: torch.Tensor, slab_t: torch.Tensor):
+    """Yield, _RING_BLOCK rings at a time, the exact squared distances
+    d [b, Q, C] = (dx^2 + dy^2) + dz^2 (each product and sum rounded, as the
+    kernels round them) with their first minimum m1 [b, Q, 1] and its slot
+    a1 [b, Q] (ties to the lowest slot)."""
     S, _, C = slab_t.shape
     col = torch.arange(C, device=slab_t.device)
-    outs = []
     for s0 in range(0, S, _RING_BLOCK):
         c = slab_t[s0:s0 + _RING_BLOCK]  # [b, 3, C]
         dx = queries[None, :, 0, None] - c[:, None, 0, :]  # [b, Q, C]
@@ -76,6 +73,22 @@ def ring_min2_plain(queries: torch.Tensor, slab_t: torch.Tensor):
         d = d + dz * dz
         m1 = torch.amin(d, dim=-1, keepdim=True)
         a1 = torch.amin(torch.where(d <= m1, col, _IBIG), dim=-1)
+        yield d, m1, a1, col
+
+
+def ring_min2_plain(queries: torch.Tensor, slab_t: torch.Tensor):
+    """Plain PyTorch per-ring (min, argmin, 2nd-min, 2nd-argmin).
+
+    queries [Q, 3] f32; slab_t [S, 3, C] f32 (coordinate-major ring slabs).
+    Returns (dmin [S, Q] f32, amin [S, Q] int32, d2 [S, Q] f32,
+    a2 [S, Q] int32); argmins are slots within the ring. Distances add as
+    (dx^2 + dy^2) + dz^2, each product and sum rounded (as K2 does), ties
+    go to the lowest slot and the second minimum excludes only the first
+    argmin's slot: the argmin, mask the winner with _BIG, argmin again
+    formulation that kernels.ring_argmin2 computes as written and K2 with a
+    running top-2."""
+    outs = []
+    for d, m1, a1, col in _ring_blocks(queries, slab_t):
         d_wo = torch.where(col == a1[..., None], _BIG, d)
         m2 = torch.amin(d_wo, dim=-1, keepdim=True)
         a2 = torch.amin(torch.where(d_wo <= m2, col, _IBIG), dim=-1)
@@ -84,13 +97,34 @@ def ring_min2_plain(queries: torch.Tensor, slab_t: torch.Tensor):
     return tuple(torch.cat(o, dim=0) for o in zip(*outs))
 
 
+def ring_min1_plain(queries: torch.Tensor, slab_t: torch.Tensor):
+    """Plain PyTorch per-ring (min, argmin): the first two outputs of
+    ring_min2_plain, bit for bit."""
+    outs = [(m1[..., 0], a1.to(torch.int32))
+            for _, m1, a1, _ in _ring_blocks(queries, slab_t)]
+    return tuple(torch.cat(o, dim=0) for o in zip(*outs))
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def ring_min2(queries: torch.Tensor, slab_t: torch.Tensor):
     """Per-ring 2-smallest reduction (K2). CPU tensors take
     ring_min2_plain; CUDA tensors launch kernels/csrc/ring_min2.cu (or
     raise — there is no fallback)."""
-    if queries.device.type == "cpu" and slab_t.device.type == "cpu":
+    if _on_cpu(queries, slab_t):
         return ring_min2_plain(queries, slab_t)
     return kernels.ring_min2(queries, slab_t)
+
+
+def ring_min1(queries: torch.Tensor, slab_t: torch.Tensor):
+    """Per-ring min-only reduction (S1, corner association). CPU tensors
+    take ring_min1_plain; CUDA tensors launch kernels/csrc/ring_min1.cu (or
+    raise)."""
+    if _on_cpu(queries, slab_t):
+        return ring_min1_plain(queries, slab_t)
+    return kernels.ring_min1(queries, slab_t)
 
 
 def ring_slab_assoc(queries: torch.Tensor, slab: RingSlab,
@@ -107,7 +141,11 @@ def ring_slab_assoc(queries: torch.Tensor, slab: RingSlab,
     Q = queries.shape[0]
     dev = queries.device
     slab_t = slab.xyz.transpose(1, 2).contiguous()  # [S, 3, C]
-    dmin, amin, d2r, a2r = ring_min2(queries.contiguous(), slab_t)
+    # the corner picks need no second minimum: min-only kernel
+    if mode == "surf":
+        dmin, amin, d2r, a2r = ring_min2(queries.contiguous(), slab_t)
+    else:
+        dmin, amin = ring_min1(queries.contiguous(), slab_t)
 
     rings = torch.arange(S, device=dev)
     q_idx = torch.arange(Q, device=dev)

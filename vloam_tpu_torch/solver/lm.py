@@ -13,7 +13,11 @@ vloam_tpu/solver/lm.py).
 - they are Jacobi-preconditioned and solved in f32,
 - the LM loop is a fixed-trip Python loop whose accept/reject updates are
   ``torch.where`` selects: nothing in it reads a value back to the host, so
-  on CUDA the whole solve is queued without a synchronization.
+  on CUDA the whole solve is queued without a synchronization,
+- every function takes optional leading stream axes: families [..., B, R],
+  states [..., d], and H [..., d, d], g [..., d], cost, lambda and accept
+  [...] per stream (the batch engine's counterpart of the reference's
+  batch_mapping._lm_solve_batched; its streams never share a reduction).
 """
 
 from __future__ import annotations
@@ -41,9 +45,10 @@ def huber_cost(sq_norm: torch.Tensor, delta: float) -> torch.Tensor:
 class ResidualFamily(NamedTuple):
     """A batch of residual blocks of equal shape, linearized at delta = 0.
 
-    r: [B, R] residuals (masked rows should still be finite)
-    J: [B, R, d] Jacobian of r with respect to the local perturbation delta
-    mask: [B] validity of each block (float or bool)
+    r: [..., B, R] residuals (masked rows should still be finite)
+    J: [..., B, R, d] Jacobian of r with respect to the local perturbation
+       delta
+    mask: [..., B] validity of each block (float or bool)
     """
 
     r: torch.Tensor
@@ -52,13 +57,14 @@ class ResidualFamily(NamedTuple):
 
 
 def normal_equations(fam: ResidualFamily, huber_delta: float):
-    """H [d, d], g [d] and the Huber cost of one family at delta = 0."""
+    """H [..., d, d], g [..., d] and the Huber cost [...] of one family at
+    delta = 0, summed over its blocks and residual rows."""
     mask = fam.mask.to(torch.float32)
     sq = torch.sum(fam.r * fam.r, dim=-1)
-    Jw = fam.J * (huber_weight(sq, huber_delta) * mask)[:, None, None]
-    H = torch.sum(Jw[..., :, None] * fam.J[..., None, :], dim=(0, 1))
-    g = torch.sum(Jw * fam.r[..., None], dim=(0, 1))
-    cost = torch.sum(huber_cost(sq, huber_delta) * mask)
+    Jw = fam.J * (huber_weight(sq, huber_delta) * mask)[..., None, None]
+    H = torch.sum(Jw[..., :, None] * fam.J[..., None, :], dim=(-4, -3))
+    g = torch.sum(Jw * fam.r[..., None], dim=(-3, -2))
+    cost = torch.sum(huber_cost(sq, huber_delta) * mask, dim=-1)
     return H, g, cost
 
 
@@ -72,13 +78,14 @@ def solve_damped(H: torch.Tensor, g: torch.Tensor,
     the port uses one pivoted LU solve. The scaled matrix is SPD with unit
     diagonal plus lam, so both give the same step up to rounding; solve_ex
     does not check for singularity, so nothing waits on the device."""
-    d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
-    Hs = H / (d[:, None] * d[None, :])
-    Hs = Hs + (lam + 1e-8) * torch.eye(H.shape[0], dtype=H.dtype,
-                                       device=H.device)
+    d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1),
+                               min=1e-12))
+    Hs = H / (d[..., :, None] * d[..., None, :])
+    Hs = Hs + (lam + 1e-8)[..., None, None] * torch.eye(
+        H.shape[-1], dtype=H.dtype, device=H.device)
     gs = g / d
-    x, _ = torch.linalg.solve_ex(Hs, gs)
-    return x / d
+    x, _ = torch.linalg.solve_ex(Hs, gs[..., None])
+    return x[..., 0] / d
 
 
 def lm_solve(
@@ -99,15 +106,16 @@ def lm_solve(
     lambda schedule as the JAX reference (lm.py:157-170)."""
     H, g, cost = normal_equations(make_family(x0), huber_delta)
     x = x0
-    lam = torch.full((), init_lambda, dtype=torch.float32, device=x0.device)
+    lam = torch.full(x0.shape[:-1], init_lambda, dtype=torch.float32,
+                     device=x0.device)
     for _ in range(iterations):
         delta = solve_damped(H, g, lam)
         x_try = retract(x, -delta)
         H_t, g_t, cost_t = normal_equations(make_family(x_try), huber_delta)
         accept = cost_t < cost
-        x = torch.where(accept, x_try, x)
-        H = torch.where(accept, H_t, H)
-        g = torch.where(accept, g_t, g)
+        x = torch.where(accept[..., None], x_try, x)
+        H = torch.where(accept[..., None, None], H_t, H)
+        g = torch.where(accept[..., None], g_t, g)
         cost = torch.where(accept, cost_t, cost)
         lam = torch.where(accept, torch.clamp(lam * 0.33, min=1e-7),
                           torch.clamp(lam * 8.0, max=1e2))

@@ -1,0 +1,105 @@
+"""Device timing for the measurement entry points and chip_smoke.py.
+
+A ctypes wrapper's host call takes ~30 us and most kernels here run shorter,
+so a host clock, or a CUDA-event interval around one call, measures the
+host. ``device_ms`` first queues a blocker (a few large matmuls) and, while
+the card works on it, queues `runs` calls between two CUDA events: the host
+is ahead of the device, the calls run back to back, and the interval over
+`runs` is the device time one call adds to a busy stream (its kernels and
+the gaps between them). With ``cold=True`` a buffer larger than the L2 cache
+is copied before every call, as the thousands of kernels between two calls
+on the main path overwrite the cache, and the copies' own time, taken
+between two more events in the same queue, is subtracted. A plain PyTorch
+version made of thousands of small kernels (K1's) outlasts the blocker: the
+host cannot stay ahead, and its interval is what a caller waits.
+
+torch.profiler's kernel durations are not used for this: on torch 2.11 /
+CUDA 12.8 it lost records of short traces that followed large ones, at times
+all of them.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import torch
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's H100 SXM data sheet
+H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+_L2_FLUSH_BYTES = 256 << 20  # 5x the H100's 50 MB L2
+# the blocker: float32 products of [8192, 8192], ~20 ms each on an H100
+_BLOCKER_N = 8192
+_BLOCKER_MATMULS = 4
+
+
+def require_cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError("this measurement needs a GPU: "
+                           "torch.cuda.is_available() is false")
+    return torch.device("cuda")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, runs: int = 20, cold: bool = True) -> float:
+    """Mean device time of one fn() in ms over `runs` calls queued behind a
+    blocker, with the L2 cache flushed before each call when `cold` (see the
+    module docstring). fn must not wait for the device."""
+    dev = require_cuda()
+    for _ in range(3):
+        fn()
+    blocker = torch.ones((_BLOCKER_N, _BLOCKER_N), device=dev)
+    if cold:
+        src = torch.empty(_L2_FLUSH_BYTES // 4, device=dev)
+        dst = torch.empty_like(src)
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    for _ in range(_BLOCKER_MATMULS):
+        torch.mm(blocker, blocker)
+    e0.record()
+    if cold:
+        for _ in range(runs):
+            dst.copy_(src)
+    e1.record()
+    for _ in range(runs):
+        if cold:
+            dst.copy_(src)
+        fn()
+    e2.record()
+    torch.cuda.synchronize()
+    ms = (e1.elapsed_time(e2) - e0.elapsed_time(e1)) / runs
+    if not ms > 0:
+        raise RuntimeError(f"device_ms: measured {ms} ms per call")
+    return ms
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time an H100 could take: the larger of bytes over its
+    memory rate and operations over its float32 rate, and which of the two
+    it is."""
+    by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    by_ops = n_ops / H100_FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def row_gather_bound(n_rows: int, width: int,
+                     n_unique: int) -> tuple[float, str]:
+    """Each of the n_unique distinct float32 rows that the indices name read
+    once, each of the n_rows output rows written once, each int64 index read
+    once; no arithmetic."""
+    return bound_ms((n_unique + n_rows) * width * 4 + n_rows * 8, 0)
+
+
+def ring_reduce_bound(Q: int, S: int, C: int, n_out: int) -> tuple[float, str]:
+    """Per (ring, query, slot) pair 3 subtractions, 3 products and 2 sums,
+    and one compare per minimum kept; queries and slabs read once, n_out
+    [S, Q] 4-byte outputs written once."""
+    ops = S * Q * C * (8 + n_out // 2)
+    return bound_ms(Q * 12 + S * 3 * C * 4 + n_out * S * Q * 4, ops)

@@ -33,8 +33,8 @@ import torch
 
 from .data.synthetic import hdl64_elevations, pad_scan
 from .geometry import so3
-from .lidar.loam_step import (_select_tree, _upload, pack12, unpack12,
-                              unpack_outputs)
+from .lidar.loam_step import (_select_tree, _upload, _upload_polar,
+                              engine_device, pack12, unpack12, unpack_outputs)
 from .lidar.mapping import GridMap, solve_mapping
 from .lidar.odometry import solve_lo
 from .lidar.ring_assoc import RingSlab
@@ -417,12 +417,13 @@ class VloamEngine:
     tensors. Outputs stay on the device until `finish()` (one download).
 
     calib: K [3, 3], P_velo_to_img [3, 4], imu_T_velo and imu_T_cam0 [4, 4].
-    device: where the state lives and every frame runs ("cuda" for the
-    hand-written kernels; "cpu" runs their plain PyTorch versions).
+    device: where the state lives and every frame runs: the card by default
+    (the hand-written kernels), and without one the constructor raises;
+    "cpu" runs the kernels' plain PyTorch versions.
     pack12: stage push_polar images as 12-bit packed uint8
     (lidar.loam_step.pack12)."""
 
-    def __init__(self, cfg, calib, chunk: int = 8, device="cpu",
+    def __init__(self, cfg, calib, chunk: int = 8, device="cuda",
                  pack12: bool = False, map_callback=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("VloamEngine(mesh=...) is not ported")
@@ -432,7 +433,7 @@ class VloamEngine:
         check_vo_options(cfg.vo)
         self.cfg = cfg
         self.chunk = chunk
-        self.device = torch.device(device)
+        self.device = engine_device(device)
         self.pack12 = pack12
         self.ext = CamExtrinsics.from_calib(calib, self.device)
         # Polar ingest decodes only the forward +-(polar_fov_fraction * pi)
@@ -512,15 +513,9 @@ class VloamEngine:
     def _flush_polar(self):
         if not self._polar:
             return
-        stacked = np.stack(self._polar)
+        ranges = _upload_polar(np.stack(self._polar), self.device)
         imgs = _upload(np.stack(self._imgs), self.device)
         self._polar, self._imgs = [], []
-        if stacked.dtype == np.uint16:
-            # uint16 travels as its int16 bit pattern, widened on the device
-            ranges = _upload(stacked.view(np.int16), self.device).to(
-                torch.int32) & 0xFFFF
-        else:
-            ranges = _upload(stacked, self.device)
         self.vstate, vl_out, stacks = vision_lo_run_chunk_polar(
             self.vstate, ranges, self._geom, imgs, self.ext, self.cfg,
             self._polar_scale, packed=self.pack12)
