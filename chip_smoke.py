@@ -6,15 +6,21 @@ batch engine.
 
 Phases (one line each; any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit; CUDA required, TF32 off
-  2. build: compile the hand-written kernels from kernels/csrc with nvcc
+  2. build: compile the hand-written kernels from kernels/csrc with nvcc;
+     ptxas' registers, spills and shared memory of K1 and K2
   frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
      1242 x 375 camera images, and three more 20-frame polar drives for the
      batch engine's other streams, rendered in worker processes
   warm-up: ~3 s of matmuls so that the timed phases start on a busy card
-  3. K1 select_rings vs its plain PyTorch version on real frame layouts
+  3. K1 select_rings vs its plain PyTorch version on real frame layouts and
+     on the crafted cases of vloam_tpu_torch/tools/kernel_cases.py (windows
+     that cross a sector's end, chains of such, equal curvatures, short
+     rings, NaN, widths up to 7000)
   4. K2 ring_min2 and S1 ring_min1 / ring_argmin2 vs their plain versions at
-     the corner and surf LO shapes on real frame features, on crafted ties
-     and at the two shapes of the ring-variants measurement
+     the corner and surf LO shapes on real frame features, on crafted ties,
+     on K2's crafted cases (duplicates across chunk and tile boundaries,
+     SENTINEL slots between live ones, counts that fit no tile) and at the
+     two shapes of the ring-variants measurement
   5. end to end: LoamEngine(kitti_hdl64(), chunk=16, device="cuda") over the
      drive; frames/s, kernel launch counts, MO error against ground truth,
      no host sync in the timed frames
@@ -98,6 +104,12 @@ VLOAM_CPU_TOL = {"LO": 2e-2, "MO": 3e-2, "VO": 3e-2}
 
 
 S1_REPLACES = "scripts/profile_ring_variants.py:73"
+# Device times in us of the first K1 and K2, which the present kernels
+# replaced: one block per ring with a block-wide argmax per round, and one
+# query per thread (NVIDIA H100 80GB HBM3 at 700 W, the same method and
+# shapes as phases 3 and 4; PERF.md section 6). Printed beside the new times.
+K1_BEFORE_US = 117.0
+K2_BEFORE_US = {"surf": 44.6, "corner": 8.3}
 
 
 def fail(msg: str) -> None:
@@ -166,8 +178,18 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
-    print(f"[2 build] {lib.name} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    usage = {**build.resource_usage("select_rings_kernel"),
+             **build.resource_usage("ring_min2_kernel")}
+    if not usage:
+        fail("no ptxas report for K1 and K2 in the build log")
+    print(f"[2 build] {lib.name} in {time.perf_counter() - t0:.2f} s; ptxas: "
+          + "; ".join(
+              f"{name} {u['registers']} registers, {u['spill_stores']} + "
+              f"{u['spill_loads']} B spilled, {u['stack']} B stack, "
+              f"{u['smem']} B static shared"
+              for name, u in sorted(usage.items())), flush=True)
+    if any(u["spill_stores"] or u["spill_loads"] for u in usage.values()):
+        fail("a redesigned kernel spills registers")
 
 
 class Calib:
@@ -248,7 +270,7 @@ def frame_features(cfg, frames, dirs):
 
 def k1_phase(cfg, ff) -> dict:
     from vloam_tpu_torch.lidar import scan_registration as sr
-    from vloam_tpu_torch.tools import timing
+    from vloam_tpu_torch.tools import kernel_cases, timing
 
     err = 0
     for curv, bf, counts, _ in ff:
@@ -258,19 +280,31 @@ def k1_phase(cfg, ff) -> dict:
         if not torch.equal(got, want):
             fail(f"K1 labels differ at {int((got != want).sum())} points")
         err = max(err, int((got - want).abs().max()))
+    n_lab = int((got != 0).sum())
+    cases = kernel_cases.select_rings_cases()
+    for case in cases:
+        c, b, n = (torch.from_numpy(a).cuda()
+                   for a in (case.curv, case.bf, case.counts))
+        got_c = sr.select_rings(c, b, n, cfg.scanreg)
+        want_c = sr.select_rings_plain(c, b, n, cfg.scanreg)
+        torch.cuda.synchronize()
+        if not torch.equal(got_c, want_c):
+            fail(f"K1 labels differ at {int((got_c != want_c).sum())} points "
+                 f"of the crafted case {case.name}")
     curv, bf, counts, _ = ff[0]
     ms = timing.device_ms(
         lambda: sr.select_rings(curv, bf, counts, cfg.scanreg))
     plain_ms = timing.device_ms(
         lambda: sr.select_rings_plain(curv, bf, counts, cfg.scanreg), runs=5,
         cold=False)
-    n_lab = int((got != 0).sum())
     # each input and the labels once; per ring 2 x 24 rounds of one compare
     # per point (the sector's running extremum)
     bound = timing.bound_ms(io_bytes(curv, bf, counts, got),
                             2 * 24 * curv.numel())
     print(f"[3 K1 select_rings] {len(ff)} frames [64,{N_AZ}] labels "
-          f"identical ({n_lab} labelled); kernel {ms * 1e3:.1f} us, plain "
+          f"identical ({n_lab} labelled), and on {len(cases)} crafted cases ("
+          + ", ".join(c.name for c in cases) + f"); kernel {ms * 1e3:.1f} us "
+          f"({K1_BEFORE_US} us before the redesign), plain "
           f"{plain_ms * 1e3:.1f} us, bound by {bound[1]} "
           f"{bound[0] * 1e3:.2f} us {clocks()}", flush=True)
     return kernel_row("select_rings", "select_rings.cu",
@@ -305,8 +339,8 @@ def _ring_check(q, slab_t, what, errs) -> None:
 def ring_phase(ff) -> tuple[dict, dict, float]:
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar import ring_assoc as ra
+    from vloam_tpu_torch.tools import kernel_cases, timing
     from vloam_tpu_torch.tools import profile_ring_variants as prv
-    from vloam_tpu_torch.tools import timing
 
     shapes = {}
     errs = {"ring_min2": 0.0, "ring_min1": 0.0, "ring_argmin2": 0.0}
@@ -334,6 +368,11 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
     got = ra.ring_min1(q.cuda(), slab_t)
     if int(got[1][0, 0]) != 7 or int(got[1][1, 5]) != 0:
         fail("ring_min1 tie rules")
+    cases = kernel_cases.ring_min2_cases()
+    for case in cases:
+        _ring_check(torch.from_numpy(case.queries).cuda(),
+                    torch.from_numpy(case.slab_t).cuda(),
+                    f"crafted case {case.name}", errs)
     for name, S, C, Q in prv.SHAPES:
         _ring_check(*prv.make(S, C, Q), f"measurement shape {name}", errs)
 
@@ -353,10 +392,18 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
             f"{name} {res[name, what][0] * 1e3:.1f} us (plain "
             f"{res[name, what][1] * 1e3:.1f}, bound "
             f"{res[name, what][2][0] * 1e3:.2f})" for name in fns))
+    clk = clocks()
+    share = prv.update_share(*shapes["surf"])
     print("[4 K2 ring_min2, S1 ring_min1 / ring_argmin2] slots and distances "
-          "identical to the plain versions (real features, ties, measurement "
-          "shapes); device time " + "; ".join(line) + f" {clocks()}",
-          flush=True)
+          f"identical to the plain versions (real features, ties, "
+          f"{len(cases)} crafted cases: "
+          + ", ".join(c.name for c in cases) + "; measurement shapes); "
+          "device time " + "; ".join(line) + "; ring_min2 before the "
+          "redesign " + ", ".join(f"{w} {t} us"
+                                  for w, t in K2_BEFORE_US.items())
+          + "; chunks of 8 surf slots whose minimum is below the running "
+          f"second minimum: {share[0]:.1%} per query, {share[1]:.1%} per "
+          f"warp of 128 queries {clk}", flush=True)
     # each engine kernel's row at the shape its path gives it, per stream
     # in the batch drive as in the single engine: K2 surf, ring_min1 corner.
     # ring_argmin2's times come from its own path, the ring-variants entry

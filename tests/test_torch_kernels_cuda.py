@@ -9,11 +9,18 @@ needs JAX.)
 
 - K1 select_rings: labels identical to select_rings_plain on random rings
   with exact curvature ties, short rings and a full ring, at the main path's
-  [64, 2560] and at a width whose shared memory needs the >48 KB opt-in.
+  [64, 2560] and at [64, 4100], and on every crafted case of
+  vloam_tpu_torch/tools/kernel_cases.py (a window that crosses a sector's
+  end, equal curvatures, sectors of one point, candidates that run out, the
+  threshold, NaN and zero, widths up to 7000, whose sectors no longer fit
+  the registers and whose ring needs the >48 KB shared-memory opt-in).
 - K2 ring_min2: argmins identical and distances within 1e-6 relative of
   ring_min2_plain (the kernel rounds every product and sum as the plain
   version does), including duplicate points, all-SENTINEL rings, a query
-  count that is not a multiple of the block and a slab over 48 KB.
+  count that is not a multiple of the block and a slab of many tiles; every
+  output identical on the crafted cases (duplicates across chunk and tile
+  boundaries, the second minimum before the first, SENTINEL slots between
+  live ones, one query, two slots).
 - The xyz-ingest engine (LoamEngine.push) on the card against the same
   engine on the CPU: LO within 2e-2 m and MO within 3e-2 m, the tolerances
   of tests/test_golden_regression.py (the order of the LM and map sums
@@ -43,6 +50,7 @@ import torch
 from vloam_tpu_torch import kernels
 from vloam_tpu_torch.lidar import ring_assoc as ra
 from vloam_tpu_torch.lidar import scan_registration as sr
+from vloam_tpu_torch.tools import kernel_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -93,6 +101,30 @@ def test_select_rings_kernel_matches_plain(cuda, rng, R):
     assert kernels.LAUNCHES["select_rings"] == n0 + 1
     assert (got != 0).sum() > 1000
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", kernel_cases.select_rings_cases(),
+                         ids=lambda c: c.name)
+def test_select_rings_kernel_crafted_cases(cuda, case):
+    curv, bf, counts = (torch.from_numpy(a).to(cuda)
+                        for a in (case.curv, case.bf, case.counts))
+    got = sr.select_rings(curv, bf, counts, _Sel)
+    want = sr.select_rings_plain(curv, bf, counts, _Sel)
+    torch.cuda.synchronize()
+    assert (want != 0).sum() > 100
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", kernel_cases.ring_min2_cases(),
+                         ids=lambda c: c.name)
+def test_ring_min2_kernel_crafted_cases(cuda, case):
+    q = torch.from_numpy(case.queries).to(cuda)
+    slab_t = torch.from_numpy(case.slab_t).to(cuda)
+    got = ra.ring_min2(q, slab_t)
+    want = ra.ring_min2_plain(q, slab_t)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("Q,C", [(768, 128), (1536, 512), (777, 5000)])

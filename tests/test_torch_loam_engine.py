@@ -375,3 +375,41 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load()
     assert not (tmp_path / "build").exists()
+
+
+def test_kernel_library_hash_covers_headers(monkeypatch, tmp_path):
+    """An edited header (csrc/*.cuh) must change the library's name, or a
+    stale library would be loaded."""
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n')
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path()
+    (tmp_path / "b.cuh").write_text("// one\n")
+    with_header = build.library_path()
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert len({before, with_header, build.library_path()}) == 3
+
+
+def test_kernel_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
+    lib = tmp_path / "libvloam_kernels_0.so"
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__afb5848a_"
+        "12_ring_min2_cu_c45ff21016ring_min2_kernelEPKfS1_PfPiS2_S3_ii' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN45_GLOBAL__N__afb5848a\n"
+        "    8 bytes stack frame, 16 bytes spill stores, 24 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 62 registers, used 1 barriers, 16384 bytes "
+        "smem\n"
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__c5974a73_"
+        "15_select_rings_cu_6f67219c19select_rings_kernelILi10EEEvPKfPKiS4_"
+        "PiNS_6ParamsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 54 registers, used 1 barriers\n")
+    monkeypatch.setattr(build, "library_path", lambda: lib)
+    assert build.resource_usage("ring_min2") == {"ring_min2_kernel": {
+        "registers": 62, "stack": 8, "spill_stores": 16, "spill_loads": 24,
+        "smem": 16384}}
+    assert build.resource_usage()["select_rings_kernel<10>"] == {
+        "registers": 54, "stack": 0, "spill_stores": 0, "spill_loads": 0,
+        "smem": 0}

@@ -6,6 +6,12 @@ ring_assoc) with the JAX reference.
   tests/test_ring_assoc.py runs it: argmins identical, distances to 1e-6
   relative (both add (dx^2 + dy^2) + dz^2 in f32), including exact ties
   (duplicate points) and all-SENTINEL rings.
+- ring_min2_plain on the crafted cases of vloam_tpu_torch/tools/
+  kernel_cases.py (query and slot counts that fit no tile, duplicate points
+  across chunk boundaries, the second minimum before the first, SENTINEL
+  slots everywhere, alone and between live ones) against ring_min2_xla and
+  the Pallas kernel in interpret mode: slots identical, distances to 1e-6
+  relative.
 - ring_slab_assoc against the reference's exact impl="xla": d0/p0/d2/p2
   equal to 1e-6. The surf pick p3 is K2's exact second minimum on ring0;
   the reference computes it on a quantized grid (~3e-5 m^2 steps), so p3
@@ -20,6 +26,7 @@ import torch
 
 from vloam_tpu.lidar import ring_assoc as jra
 from vloam_tpu_torch.lidar import ring_assoc as tra
+from vloam_tpu_torch.tools import kernel_cases
 
 # One intra-op thread: pytest-xdist workers share the cores, and torch's
 # OpenMP pool stalls each small parallel CPU op when they are
@@ -73,6 +80,41 @@ def test_ring_min2_plain_matches_pallas_interpret(rng, case):
         assert (amin[1, :4] == 3).all() and (a2[1, :4] == 10).all()
         assert (amin[2] == 0).all() and (a2[2] == 1).all()  # all-SENTINEL
         assert amin[5, 4] == 0 and a2[5, 4] == 127
+
+
+@pytest.mark.parametrize("case", kernel_cases.ring_min2_cases(),
+                         ids=lambda c: c.name)
+def test_ring_min2_plain_crafted_cases(case):
+    q, slab_t = case.queries, case.slab_t
+    got = [g.numpy() for g in tra.ring_min2_plain(torch.from_numpy(q),
+                                                  torch.from_numpy(slab_t))]
+    refs = (jra.ring_min2_xla(jnp.asarray(q), jnp.asarray(slab_t)),
+            jra.ring_min2_pallas(jnp.asarray(q), jnp.asarray(slab_t),
+                                 q_tile=32, interpret=True))
+    for want in refs:
+        for w, g in zip(want, got):
+            w = np.asarray(w)
+            assert g.shape == w.shape and g.dtype == w.dtype
+            if w.dtype == np.int32:
+                np.testing.assert_array_equal(g, w)
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-6)
+    dmin, amin, d2, a2 = got
+    if case.name == "duplicates_across_chunks":
+        pairs = [(2, 6), (3, 4), (7, 8), (15, 16), (255, 256), (511, 512),
+                 (1023, 1024), (5, 1099)]
+        for s, (a, b) in enumerate(pairs):  # query s sits on ring s's pair
+            assert (amin[s, s], a2[s, s]) == (a, b)
+            assert dmin[s, s] == 0 and d2[s, s] == 0
+    elif case.name == "second_before_first":
+        for s in range(8):
+            assert (amin[s, s], a2[s, s]) == (100, 3 + s)
+    elif case.name == "sentinel_slots":
+        assert (amin[0] == 0).all() and (a2[0] == 1).all()
+        assert (amin[1] == 37).all() and (a2[1] == 0).all()
+        assert (amin[2] % 2 == 1).all() and (a2[2] % 2 == 1).all()
+        assert (amin[3] == 129).all() and (a2[3] == 0).all()
+        assert ((amin[4] >= 8) & (amin[4] < 16)).all()
 
 
 def test_ring_min2_dispatch_has_no_fallback():

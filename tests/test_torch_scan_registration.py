@@ -7,6 +7,12 @@ scan_registration) with the JAX reference at the tiny test profile.
   Pallas kernel _select_rings_pallas_kernel run in interpret mode, the
   vmapped XLA _select_ring (strict) and tests/np_loam.py::select_ring_np:
   labels identical.
+- select_rings_plain on the crafted cases of vloam_tpu_torch/tools/
+  kernel_cases.py (a suppression window that crosses a sector's end, equal
+  curvatures, short rings, sectors whose candidates run out, curvature at
+  the threshold, NaN and zero, ring widths 1800 to 7000) against the vmapped
+  strict _select_ring, the Pallas kernel in interpret mode and, where its
+  rule is the same, np_loam.select_ring_np: labels identical.
 - register_scan and register_scan_polar: labels, masks, ring ids and voxel
   membership exact; points, relative times and slab centroids to 1e-5.
   The polar path is compared on the same ray directions: the two packages'
@@ -29,6 +35,7 @@ from vloam_tpu.config import ScanRegistrationConfig, tiny_test_profile
 from vloam_tpu.data import synthetic
 from vloam_tpu.lidar import scan_registration as jsr
 from vloam_tpu_torch.lidar import scan_registration as tsr
+from vloam_tpu_torch.tools import kernel_cases
 
 # One intra-op thread: pytest-xdist workers share the cores, and torch's
 # OpenMP pool stalls each small parallel CPU op when they are
@@ -125,6 +132,52 @@ def test_select_rings_plain_ties_and_short_rings(rng):
     got = tsr.select_rings_plain(_t(curv), _t(bf), _t(counts), cfg).numpy()
     np.testing.assert_array_equal(got, _pallas_labels(curv, bf, counts, cfg))
     assert (got[:2] == 0).all()
+
+
+@pytest.mark.parametrize("case", kernel_cases.select_rings_cases(),
+                         ids=lambda c: c.name)
+def test_select_rings_plain_crafted_cases(case):
+    cfg = ScanRegistrationConfig()
+    pts, curv, bf, counts = case.pts, case.curv, case.bf, case.counts
+    np.testing.assert_array_equal(
+        tsr._break_prefix(_t(pts), cfg.neighbor_suppress_gap_sq).numpy(), bf)
+    got = tsr.select_rings_plain(_t(curv), _t(bf), _t(counts), cfg).numpy()
+    xla = jax.jit(jax.vmap(lambda p, c, k: jsr._select_ring(p, c, k, cfg)[0]))(
+        jnp.asarray(pts), jnp.asarray(curv), jnp.asarray(counts))
+    np.testing.assert_array_equal(got, np.asarray(xla))
+    np.testing.assert_array_equal(got, _pallas_labels(curv, bf, counts, cfg))
+    if case.numpy_rule:
+        for s in range(curv.shape[0]):
+            want = np_loam.select_ring_np(
+                pts[s], curv[s], int(counts[s]),
+                thr=np.float32(cfg.curvature_threshold))
+            np.testing.assert_array_equal(got[s], want)
+    # each case bites, and where the references leave a point open (NaN in
+    # np_loam, which also takes equal corners from the highest index down)
+    # the plain version's own rule is held: NaN is never a candidate, equal
+    # scores go to the lowest index
+    sp, ep = kernel_cases.sector_bounds(curv.shape[1], 0)
+    if case.name == "window_crosses_sector_end":
+        assert got[0, ep] == 2 and (got[0, ep + 1:ep + 6] == 0).all()
+        assert got[5, ep] == 2 and got[5, ep + 5] == 2  # a gap between them
+    elif case.name == "equal_curvatures":
+        assert got[0, sp:sp + 19].tolist() == [2] + [0] * 5 + [2] + [0] * 5 \
+            + [1] + [0] * 5 + [1]
+        flat = np.flatnonzero(got[1, sp:ep + 1])
+        assert flat.tolist() == [0, 6, 12, 18] and (got[1] <= 0).all()
+    elif case.name == "ring_lengths":
+        assert (got[:3] == 0).all() and (got[3:] != 0).any(axis=1).all()
+    elif case.name == "candidates_run_out":
+        assert (got[0] <= 0).all() and (got[1] >= 0).all()
+        assert np.flatnonzero(got[2]).tolist() == [sp + 3, sp + 100, ep]
+        assert np.flatnonzero(got[3]).tolist() == [sp, sp + 50]
+        assert np.flatnonzero(got[4]).tolist() == [sp + 25, sp + 31]
+    elif case.name == "at_the_threshold":
+        assert (got[curv == kernel_cases.THRESHOLD] == 0).all()
+        assert (got[0] == 0).all()
+    elif case.name == "nan_and_zero":
+        assert (got[np.isnan(curv)] == 0).all() and (got[0] == 0).all()
+        assert np.flatnonzero(got[1, sp:ep + 1]).tolist() == [0, 6, 12, 18]
 
 
 def test_select_rings_dispatch_has_no_fallback():

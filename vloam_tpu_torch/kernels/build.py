@@ -4,12 +4,13 @@ The sources are compiled with nvcc for Hopper (sm_90a), one nvcc process per
 source, all started together, and linked into one shared library with a
 plain C interface, loaded with ctypes. The build happens at first use, from
 the package's own sources, into kernels/build/; the library name carries a
-hash of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded. There is no fallback: without nvcc the build
-raises.
+hash of the sources, the headers they may include (csrc/*.cuh) and the flags,
+so an edited source or header is rebuilt and a stale library is never loaded.
+There is no fallback: without nvcc the build raises.
 
 Run ``python -m vloam_tpu_torch.kernels.build`` to build ahead of time and
-print ptxas' register / shared-memory report.
+print ptxas' register / shared-memory report; ``resource_usage()`` gives the
+same per kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -59,9 +61,13 @@ def find_nvcc() -> str:
         "tensors.")
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvloam_kernels_{h.hexdigest()[:16]}.so"
@@ -97,6 +103,46 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed:\n{report}")
         os.replace(so, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_USED = re.compile(r"Used (\d+) registers(.*)")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _kernel_name(mangled: str) -> str:
+    """'ring_min2_kernel' or 'select_rings_kernel<10>' from ptxas' mangled
+    entry name (its length-prefixed '..._kernel' part and, if it is a
+    template, its integer argument)."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for n in range(len("_kernel"), end):  # the name's length prefix
+        if mangled[:end - n].endswith(str(n)):
+            arg = re.match(r"ILi(\d+)E", mangled[end:])
+            name = mangled[end - n:end]
+            return f"{name}<{arg.group(1)}>" if arg else name
+    return mangled
+
+
+def resource_usage(match: str = "") -> dict[str, dict[str, int]]:
+    """ptxas' report of the built library, per kernel whose name contains
+    `match`: registers a thread, bytes of stack frame, of spill stores and
+    loads, and of static shared memory."""
+    log = build().with_suffix(".log").read_text()
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            name = _kernel_name(m.group(1))
+            out[name] = {"smem": 0}
+        elif name and (m := _STACK.search(line)):
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, m.groups())))
+        elif name and (m := _USED.search(line)):
+            out[name]["registers"] = int(m.group(1))
+            if sm := _SMEM.search(m.group(2)):
+                out[name]["smem"] = int(sm.group(1))
+    return {k: v for k, v in out.items() if match in k}
 
 
 def load() -> ctypes.CDLL:
