@@ -7,7 +7,8 @@ batch engine.
 Phases (one line each; any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit; CUDA required, TF32 off
   2. build: compile the hand-written kernels from kernels/csrc with nvcc;
-     ptxas' registers, spills and shared memory of K1 and K2
+     ptxas' registers, spills and shared memory of the four redesigned
+     kernels (K1, K2, K3, ring_min1)
   frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
      1242 x 375 camera images, and three more 20-frame polar drives for the
      batch engine's other streams, rendered in worker processes
@@ -19,14 +20,20 @@ Phases (one line each; any failure ends the run with a nonzero exit):
   4. K2 ring_min2 and S1 ring_min1 / ring_argmin2 vs their plain versions at
      the corner and surf LO shapes on real frame features, on crafted ties,
      on K2's crafted cases (duplicates across chunk and tile boundaries,
-     SENTINEL slots between live ones, counts that fit no tile) and at the
-     two shapes of the ring-variants measurement
+     SENTINEL slots between live ones, counts that fit no tile), on the
+     min-only slab shapes (counts ring_min1's block shape divides unevenly,
+     equal minima across its groups) and at the two shapes of the
+     ring-variants measurement; times beside those of the kernels before
+     their redesign
   5. end to end: LoamEngine(kitti_hdl64(), chunk=16, device="cuda") over the
      drive; frames/s, kernel launch counts, MO error against ground truth,
      no host sync in the timed frames
   6. the first 6 frames again on the CPU (plain versions): trajectories agree
   7. K3 zncc_describe vs its plain version on keypoints of rendered frames
-     plus crafted rows (image corners, a constant patch), p = 24 and 16
+     plus crafted rows (image corners, a constant patch), p = 24 and 16, and
+     on the crafted cases of kernel_cases.zncc_cases (edges, flat patches
+     either side of the 1e-3 floor, p = 24, 16 and 7); cold and warm L2
+     times beside the kernel's before its redesign
   8. end to end: VloamEngine(kitti_hdl64() with detach_VO_LO=False,
      chunk=16, device="cuda") over the drive and its images; frames/s, kernel
      launch counts, LO / MO error and VO ATE against ground truth, no host
@@ -46,8 +53,10 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      [2^17, 96] x 65536 random
   12. the ring-variants measurement entry point (ring_argmin2's path): its
      check against the plain version and its times
-  13. launches per frame: torch.profiler over steady frames of each engine
-     (printed, not gated: the profiler can lose records)
+  13. launches per frame: torch.profiler over steady frames of each engine,
+     with the device time per launch of each hand-written kernel there (K3's
+     in VloamEngine: the L2 the engine leaves it); printed, not gated: the
+     profiler can lose records
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -110,6 +119,11 @@ S1_REPLACES = "scripts/profile_ring_variants.py:73"
 # shapes as phases 3 and 4; PERF.md section 6). Printed beside the new times.
 K1_BEFORE_US = 117.0
 K2_BEFORE_US = {"surf": 44.6, "corner": 8.3}
+# ... and of the first K3 (one warp a keypoint, a runtime division a pixel)
+# and ring_min1 (one query a thread), the same method and shapes as phases 7
+# and 4 (PERF.md section 6)
+K3_BEFORE_US = 15.4
+RING_MIN1_BEFORE_US = {"corner": 6.2, "surf": 31.6}
 
 
 def fail(msg: str) -> None:
@@ -178,10 +192,12 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
-    usage = {**build.resource_usage("select_rings_kernel"),
-             **build.resource_usage("ring_min2_kernel")}
-    if not usage:
-        fail("no ptxas report for K1 and K2 in the build log")
+    redesigned = {"select_rings_kernel", "ring_min2_kernel",
+                  "zncc_describe_kernel", "ring_min1_kernel"}
+    usage = {k: v for k, v in build.resource_usage().items()
+             if k.split("<")[0] in redesigned}
+    if {k.split("<")[0] for k in usage} != redesigned:
+        fail(f"no ptxas report for a redesigned kernel: {sorted(usage)}")
     print(f"[2 build] {lib.name} in {time.perf_counter() - t0:.2f} s; ptxas: "
           + "; ".join(
               f"{name} {u['registers']} registers, {u['spill_stores']} + "
@@ -368,7 +384,7 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
     got = ra.ring_min1(q.cuda(), slab_t)
     if int(got[1][0, 0]) != 7 or int(got[1][1, 5]) != 0:
         fail("ring_min1 tie rules")
-    cases = kernel_cases.ring_min2_cases()
+    cases = kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases()
     for case in cases:
         _ring_check(torch.from_numpy(case.queries).cuda(),
                     torch.from_numpy(case.slab_t).cuda(),
@@ -398,9 +414,11 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
           f"identical to the plain versions (real features, ties, "
           f"{len(cases)} crafted cases: "
           + ", ".join(c.name for c in cases) + "; measurement shapes); "
-          "device time " + "; ".join(line) + "; ring_min2 before the "
-          "redesign " + ", ".join(f"{w} {t} us"
-                                  for w, t in K2_BEFORE_US.items())
+          "device time " + "; ".join(line) + "; before the redesign "
+          "ring_min2 " + ", ".join(f"{w} {t} us"
+                                   for w, t in K2_BEFORE_US.items())
+          + ", ring_min1 " + ", ".join(f"{w} {t} us" for w, t in
+                                       RING_MIN1_BEFORE_US.items())
           + "; chunks of 8 surf slots whose minimum is below the running "
           f"second minimum: {share[0]:.1%} per query, {share[1]:.1%} per "
           f"warp of 128 queries {clk}", flush=True)
@@ -730,8 +748,9 @@ def k3_phase(cfg, images) -> dict:
     """K3 against its plain version on detected keypoints of 3 rendered
     frames, their last 8 rows replaced by crafted ones: the four image
     corners and a negative x (clipped patches), two keypoints on a constant
-    patch (the 1e-3 floor) and one in the middle."""
-    from vloam_tpu_torch.tools import timing
+    patch (the 1e-3 floor) and one in the middle; then on the crafted cases
+    of kernel_cases.zncc_cases."""
+    from vloam_tpu_torch.tools import kernel_cases, timing
     from vloam_tpu_torch.vision import features as tf
 
     crafted = torch.tensor([
@@ -741,6 +760,17 @@ def k3_phase(cfg, images) -> dict:
     err = 0.0
     n_zero = 0
     inputs = {}
+
+    def held(got, want, what) -> float:
+        zg, zw = (got == 0).all(1), (want == 0).all(1)
+        e = float((got - want).abs().max())
+        if not torch.equal(zg, zw):
+            fail(f"K3 {what}: zero rows differ ({int(zg.sum())} kernel, "
+                 f"{int(zw.sum())} plain)")
+        if not e <= 1e-5:
+            fail(f"K3 {what}: max |err| {e} > 1e-5")
+        return e
+
     for k, u8 in enumerate(images[:3]):
         img = torch.from_numpy(u8).cuda().to(torch.float32) / 255.0
         img[300:, :80] = 0.25  # a constant patch at the bottom left
@@ -752,35 +782,45 @@ def k3_phase(cfg, images) -> dict:
             got = tf.zncc_describe(img, xy, p)
             want = tf.zncc_describe_plain(img, xy, p)
             torch.cuda.synchronize()
-            zg, zw = (got == 0).all(1), (want == 0).all(1)
-            if not torch.equal(zg, zw) or not bool(zg[-3:-1].all()):
-                fail(f"K3 p={p}: zero rows differ ({int(zg.sum())} kernel, "
-                     f"{int(zw.sum())} plain) or the constant patch is live")
-            e = float((got - want).abs().max())
-            if not e <= 1e-5:
-                fail(f"K3 p={p}: max |err| {e} > 1e-5")
-            err = max(err, e)
+            err = max(err, held(got, want, f"frame {k} p={p}"))
+            zg = (got == 0).all(1)
+            if not bool(zg[-3:-1].all()):
+                fail(f"K3 p={p}: the constant patch is live")
             n_zero = max(n_zero, int(zg.sum()))
             inputs[p] = (img, xy)
+    cases = kernel_cases.zncc_cases()
+    for case in cases:
+        img = torch.from_numpy(case.img).cuda()
+        xy = torch.from_numpy(case.xy).cuda()
+        for K in (len(xy), len(xy) - 3):  # and a count no grouping divides
+            got = tf.zncc_describe(img, xy[:K], case.p)
+            want = tf.zncc_describe_plain(img, xy[:K], case.p)
+            torch.cuda.synchronize()
+            err = max(err, held(got, want, f"case {case.name} K={K}"))
     times = {p: (timing.device_ms(lambda: tf.zncc_describe(img, xy, p)),
+                 timing.device_ms(lambda: tf.zncc_describe(img, xy, p),
+                                  cold=False),
                  timing.device_ms(
                      lambda: tf.zncc_describe_plain(img, xy, p)))
              for p, (img, xy) in inputs.items()}
     # the main path's patch size (cfg.vo's 24): image, keypoints and
-    # descriptors once; per descriptor element a bilinear sample (7
-    # operations) and 2 for each of mean and norm
+    # descriptors once; per descriptor element an add for the mean, a
+    # subtract, a multiply and an add for the norm and the scaling multiply
     img, xy = inputs[24]
-    n_desc = len(xy) * 24 * 24
-    bound = timing.bound_ms(io_bytes(img, xy) + 4 * n_desc, 11 * n_desc)
+    bound = timing.zncc_bound(len(xy), 24, *img.shape)
     print(f"[7 K3 zncc_describe] 3 frames [{IMG_H},{IMG_W}] x "
-          f"{len(xy)} keypoints, max |err| {err:.3g} (bound 1e-5), zero rows "
-          f"identical (up to {n_zero} a frame); "
-          + "; ".join(f"p={p} kernel {k * 1e3:.1f} us, plain {q * 1e3:.1f} us"
-                      for p, (k, q) in times.items())
-          + f"; bound by {bound[1]} {bound[0] * 1e3:.2f} us (p=24) {clocks()}",
+          f"{len(xy)} keypoints and {len(cases)} crafted cases ("
+          + ", ".join(c.name for c in cases) + f"), max |err| {err:.3g} "
+          f"(bound 1e-5), zero rows identical (up to {n_zero} a frame); "
+          + "; ".join(f"p={p} kernel {k * 1e3:.1f} us cold L2, "
+                      f"{w * 1e3:.1f} us warm, plain {q * 1e3:.1f} us"
+                      for p, (k, w, q) in times.items())
+          + f"; before the redesign {K3_BEFORE_US} us (p=24, cold); bound by "
+          f"{bound[1]} {bound[0] * 1e3:.2f} us (p=24) {clocks()}",
           flush=True)
+    ms, _, plain_ms = times[24]
     return kernel_row("zncc_describe", "zncc_describe.cu",
-                      "vloam_tpu/vision/features.py:411", err, *times[24],
+                      "vloam_tpu/vision/features.py:411", err, ms, plain_ms,
                       bound)
 
 
@@ -928,9 +968,12 @@ def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> None:
     lo.finish()
     vl.finish()
     ba.finish()
+    k3 = stats["VloamEngine"]["kernel_us"].get("zncc_describe_kernel")
     print("[13 launches per frame] torch.profiler over frames "
           f"{PROFILE_FRAMES}-{2 * PROFILE_FRAMES - 1}, chunk {PROFILE_FRAMES}"
-          " (profiler on): " + "; ".join(
+          " (profiler on): K3 zncc_describe in VloamEngine "
+          + (f"{k3:.1f} us per launch" if k3 else "not recorded")
+          + "; " + "; ".join(
               f"{name} {s['launches']:.0f} kernel launches, "
               f"{s['device_kernels']:.0f} device kernels, device "
               f"{s['device_ms']:.2f} ms, host enqueue {s['host_ms']:.2f} ms, "

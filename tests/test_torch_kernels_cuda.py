@@ -32,13 +32,20 @@ needs JAX.)
 - K3 zncc_describe: within 1e-5 of zncc_describe_plain at the main path's
   [375, 1242] image and 2048 keypoints, p = 24 and 16, with zero rows
   (the 1e-3 floor) in the same places, on keypoints at the image's corners
-  (clipping) and on a constant patch.
+  (clipping) and on a constant patch; and on every crafted K3 case of
+  kernel_cases.py (edges, flat patches either side of the floor, p = 24,
+  16 and 7), each with all its keypoints and with 3 fewer (a count no warp
+  or block grouping divides), and on an image that starts 4 bytes into its
+  buffer (rows at other 16-byte alignments).
 - S2 row_gather: bit-identical to table[idx] at both map row widths and at
   widths below, at and above a warp of 16-byte words, with repeated and
   boundary rows and a row count that is not a multiple of the block; widths
   that are not a multiple of 4 floats and int32 indices are refused.
 - S1 ring_min1 and ring_argmin2: every output identical to the plain
-  versions and to K2's, on the shapes and the ties of the K2 test.
+  versions and to K2's, on the shapes and the ties of the K2 test, on K2's
+  crafted cases and on the min-only slab shapes of kernel_cases.py (counts
+  that ring_min1's block shape divides unevenly, all-SENTINEL rings, equal
+  minima across chunk, group and tile boundaries).
 - The batch engine on the card against the same engine on the CPU, the
   tolerances of the single engine's test.
 """
@@ -181,6 +188,22 @@ def test_ring_min1_and_argmin2_kernels_match_plain_and_k2(cuda, rng, Q, C):
     for g, w, k in zip(got2, want, k2):
         assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, k)
     assert int(got1[1][3, 0]) == 2 and int(got2[3][3, 0]) == 9
+
+
+@pytest.mark.parametrize(
+    "case", kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases(),
+    ids=lambda c: c.name)
+def test_ring_min1_and_argmin2_kernels_crafted_cases(cuda, case):
+    q = torch.from_numpy(case.queries).to(cuda)
+    slab_t = torch.from_numpy(case.slab_t).to(cuda)
+    got1 = ra.ring_min1(q, slab_t)
+    got2 = kernels.ring_argmin2(q, slab_t)
+    k2 = ra.ring_min2(q, slab_t)
+    torch.cuda.synchronize()
+    for g, w, k in zip(got1, ra.ring_min1_plain(q, slab_t), k2):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, k)
+    for g, w in zip(got2, ra.ring_min2_plain(q, slab_t)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("W,N", [(96, 16384), (48, 49152), (4, 1000),
@@ -390,3 +413,24 @@ def test_zncc_describe_kernel_matches_plain(cuda, p):
     zero_g, zero_w = (got == 0).all(1), (want == 0).all(1)
     assert torch.equal(zero_g, zero_w) and bool(zero_g[-4])
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", kernel_cases.zncc_cases(),
+                         ids=lambda c: c.name)
+def test_zncc_describe_kernel_crafted_cases(cuda, case):
+    from vloam_tpu_torch.vision import features as tf
+
+    H, W = case.img.shape
+    flat = torch.zeros(H * W + 1, device=cuda)
+    flat[1:] = torch.from_numpy(case.img.reshape(-1)).to(cuda)
+    # the image as a tensor of its own, and 4 bytes into a larger buffer
+    for img in (torch.from_numpy(case.img).to(cuda), flat[1:].view(H, W)):
+        for K in (len(case.xy), len(case.xy) - 3):
+            xy = torch.from_numpy(case.xy[:K]).to(cuda)
+            n0 = kernels.LAUNCHES["zncc_describe"]
+            got = tf.zncc_describe(img, xy, case.p)
+            want = tf.zncc_describe_plain(img, xy, case.p)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["zncc_describe"] == n0 + 1
+            assert torch.equal((got == 0).all(1), (want == 0).all(1))
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -12,6 +12,11 @@ ring_assoc) with the JAX reference.
   slots everywhere, alone and between live ones) against ring_min2_xla and
   the Pallas kernel in interpret mode: slots identical, distances to 1e-6
   relative.
+- ring_min1_plain (the CPU version of S1's ring_min1) on the same crafted
+  cases and on min-only slab shapes (query and slot counts that ring_min1's
+  block shape divides unevenly, all-SENTINEL rings, equal minima across
+  chunk, group and tile boundaries) against ring_min2_xla's first two
+  outputs: slots identical, distances to 1e-6 relative.
 - ring_slab_assoc against the reference's exact impl="xla": d0/p0/d2/p2
   equal to 1e-6. The surf pick p3 is K2's exact second minimum on ring0;
   the reference computes it on a quantized grid (~3e-5 m^2 steps), so p3
@@ -115,6 +120,30 @@ def test_ring_min2_plain_crafted_cases(case):
         assert (amin[2] % 2 == 1).all() and (a2[2] % 2 == 1).all()
         assert (amin[3] == 129).all() and (a2[3] == 0).all()
         assert ((amin[4] >= 8) & (amin[4] < 16)).all()
+
+
+@pytest.mark.parametrize(
+    "case", kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases(),
+    ids=lambda c: c.name)
+def test_ring_min1_plain_crafted_cases(case):
+    """ring_min1_plain (what S1's ring_min1 computes) against the first two
+    outputs of ring_min2_xla, on K2's crafted cases and on the min-only slab
+    shapes that ring_min1's block shape divides unevenly."""
+    q, slab_t = case.queries, case.slab_t
+    dmin, amin = (g.numpy() for g in tra.ring_min1_plain(
+        torch.from_numpy(q), torch.from_numpy(slab_t)))
+    want = jra.ring_min2_xla(jnp.asarray(q), jnp.asarray(slab_t))
+    w_d, w_a = np.asarray(want[0]), np.asarray(want[1])
+    assert amin.dtype == w_a.dtype and amin.shape == w_a.shape
+    np.testing.assert_array_equal(amin, w_a)
+    np.testing.assert_allclose(dmin, w_d, rtol=1e-6)
+    if case.name.startswith("min1_") and "x" in case.name:
+        assert (amin[0] == 0).all()  # the all-SENTINEL ring: slot 0
+    if case.name == "min1_duplicates_across_groups":
+        pairs = [(60, 64), (30, 100), (250, 260), (500, 515), (5, 1090),
+                 (700, 1030), (127, 128), (3, 4)]
+        for s, (a, _) in enumerate(pairs):  # ties keep the lower slot
+            assert amin[s, s] == a and dmin[s, s] == 0
 
 
 def test_ring_min2_dispatch_has_no_fallback():

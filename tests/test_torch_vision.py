@@ -22,7 +22,8 @@ scene from fixed seeds and uint8-quantized as the engines do.
   parked at (0, 0), whose patch the XLA form's vmapped slice on the CPU
   clamps to the far corner of the image (a negative start clips to the
   maximum) while the Pallas kernel and the port clip to (0, 0). The matcher
-  masks those rows either way.
+  masks those rows either way. The plain version against the Pallas kernel
+  also on the crafted K3 cases of vloam_tpu_torch/tools/kernel_cases.py.
 - match_descriptors on JAX's descriptors: idx and valid identical, knn and
   nn.
 - build_depth_grid: cnt exact, u / v / z to 1e-5 (relative); query_depth to
@@ -46,6 +47,7 @@ from vloam_tpu.vision import features as jf
 from vloam_tpu.vision import vo as jvo
 from vloam_tpu_torch.data import synthetic as tsyn
 from vloam_tpu_torch.geometry import so3 as tso3
+from vloam_tpu_torch.tools import kernel_cases
 from vloam_tpu_torch.vision import depth_map as tdm
 from vloam_tpu_torch.vision import features as tf
 from vloam_tpu_torch.vision import vo as tvo
@@ -230,6 +232,31 @@ def test_zncc_floor_zeroes_flat_patches(rng):
     assert abs(np.linalg.norm(xla[1]) - 1.0) < 1e-3  # noise, normalized
     np.testing.assert_allclose(got[[2, 3, 5, 6, 7]], xla[[2, 3, 5, 6, 7]],
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", kernel_cases.zncc_cases(),
+                         ids=lambda c: c.name)
+def test_zncc_plain_crafted_cases(case):
+    """zncc_describe_plain (what K3 computes) against the Pallas kernel in
+    interpret mode on the crafted cases of vloam_tpu_torch/tools/
+    kernel_cases.py: keypoints at the corners and past every edge, negative
+    and .999 coordinates, constant patches and patches on either side of the
+    1e-3 floor, p = 24, 16 and 7, images of 390 and 397 columns."""
+    got = tf.zncc_describe_plain(_t(case.img), _t(case.xy), case.p).numpy()
+    pallas = np.asarray(jf._describe_zncc_pallas(
+        jnp.asarray(case.img), jnp.asarray(case.xy), case.p, interpret=True))
+    assert got.shape == (len(case.xy), case.p * case.p)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+    zero = np.all(got == 0, axis=1)
+    np.testing.assert_array_equal(zero, np.all(pallas == 0, axis=1))
+    if case.name.startswith("flat_patches"):
+        # constant 0.5, 0 and 1, norm below, above, below, above, half flat
+        np.testing.assert_array_equal(
+            zero, [True, True, True, True, False, True, False, False])
+    else:
+        assert not zero.any()
+    np.testing.assert_allclose(np.linalg.norm(got[~zero], axis=1), 1.0,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("select", ["knn", "nn"])

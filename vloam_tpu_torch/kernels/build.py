@@ -105,6 +105,26 @@ def build() -> Path:
     return lib
 
 
+def build_variants(src: Path, defines: list[dict[str, int]],
+                   out_dir: str) -> list[tuple[str, str]]:
+    """Compile one source alone into a shared library per set of macros
+    (`-D<name>=<value>`), all nvcc processes at once, into out_dir; returns
+    (library path, nvcc and ptxas output) for each. For the measurement
+    tools, which time a kernel with other design constants. Raises if a
+    build fails."""
+    nvcc = find_nvcc()
+    out_dir = tempfile.mkdtemp(dir=out_dir)  # no name clashes between calls
+    libs = [str(Path(out_dir) / f"{src.stem}_{i}.so")
+            for i in range(len(defines))]
+    steps = _run_all([[nvcc, *NVCC_FLAGS, "-shared",
+                       *(f"-D{k}={v}" for k, v in d.items()), "-o", so,
+                       str(src)] for d, so in zip(defines, libs)])
+    for cmd, rc, out in steps:
+        if rc:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
+    return [(so, out) for so, (_, _, out) in zip(libs, steps)]
+
+
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _USED = re.compile(r"Used (\d+) registers(.*)")
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -129,7 +149,12 @@ def resource_usage(match: str = "") -> dict[str, dict[str, int]]:
     """ptxas' report of the built library, per kernel whose name contains
     `match`: registers a thread, bytes of stack frame, of spill stores and
     loads, and of static shared memory."""
-    log = build().with_suffix(".log").read_text()
+    usage = parse_report(build().with_suffix(".log").read_text())
+    return {k: v for k, v in usage.items() if match in k}
+
+
+def parse_report(log: str) -> dict[str, dict[str, int]]:
+    """resource_usage's table from the text of a ptxas -v report."""
     out, name = {}, None
     for line in log.splitlines():
         if m := _ENTRY.search(line):
@@ -142,7 +167,7 @@ def resource_usage(match: str = "") -> dict[str, dict[str, int]]:
             out[name]["registers"] = int(m.group(1))
             if sm := _SMEM.search(m.group(2)):
                 out[name]["smem"] = int(sm.group(1))
-    return {k: v for k, v in out.items() if match in k}
+    return out
 
 
 def load() -> ctypes.CDLL:

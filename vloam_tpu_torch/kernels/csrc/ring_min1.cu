@@ -12,27 +12,92 @@
 //   vloam_ring_argmin2  the same inputs -> K2's (dmin, amin, d2, a2), in the
 //                       argmin-then-mask formulation; timed beside K2.
 //
-// What bounds them on Hopper: arithmetic, as K2 (8 flops and one or two
-// compares per (query, slot) pair against a few KB of inputs; the [Q, C]
-// distance block is never written). Same shape as K2: one block per (ring,
-// 128-query tile), the ring's [3, C] slab staged once in shared memory and
-// read as a broadcast, one query per thread. ring_min1 keeps a running
-// minimum in registers; ring_argmin2 walks the ring twice and recomputes
-// the distances in the second pass rather than storing them.
+// What bounds them on Hopper: instruction issue, as K2 (ring_min2.cu, whose
+// notes this follows). A (query, slot) pair costs 8 float instructions that
+// may not fuse: (dx*dx + dy*dy) + dz*dz with every product and sum rounded
+// separately (__fmul_rn / __fadd_rn, build flag -fmad=false), as the plain
+// PyTorch versions round, so that slots and distances match them bit for bit.
+// At the corner shape the engines launch (768 queries x 64 rings x 128 slots,
+// 6.3 M pairs) those 8 and one minimum a pair are ~1.7 us of issue on 132 SMs
+// x 4 schedulers at 1.98 GHz; everything else is launch, staging and the
+// update rule, and the design cuts the update rule and fills the schedulers:
 //
-// Exactness: distances are (dx*dx + dy*dy) + dz*dz with every product and
-// sum rounded separately (__fmul_rn/__fadd_rn, build flag -fmad=false), as
-// K2 and the plain PyTorch versions round; a strict `<` keeps the lowest
-// slot on ties, which is the iota-min rule of the reference. ring_min1's
-// outputs equal K2's first two and ring_argmin2's all four, bit for bit.
+// - ring_min1 is K2's first half with K2's loop. The slab is staged in
+//   shared memory in tiles of kTile slots packed as float4 {x, y, z, -}, and a
+//   thread holds kQpt queries in registers, so one broadcast 16-byte load
+//   serves kQpt pairs instead of three 4-byte loads serving one. Queries are
+//   strided over a group (q = base + j * kGroup + tid), so stores coalesce.
+// - The loop tracks chunks, not slots, without branches: per chunk of kChunk
+//   slots one fminf a pair, then (chunk minimum, chunk id) replaces the
+//   running best chunk if its minimum is strictly smaller (one compare, one
+//   select, one minimum a chunk). The minimum of a ring lies in the earliest
+//   chunk that reaches it; a resolve pass over that chunk's slots with the
+//   strict running rule finds its first slot. That is the iota-min rule of
+//   the plain version: ties keep the lowest slot, an all-SENTINEL ring gives
+//   slot 0.
+// - Block shape: a block is kSplit groups of kGroup threads that hold the
+//   same kGroup x kQpt queries, each group over its share of every tile's
+//   chunks; the groups merge their best chunks by (minimum, chunk id) through
+//   shared memory and resolve the queries between them, from the query
+//   registers they already hold. At the corner shape 64 rings x 768 queries
+//   with 4 queries a thread and one group of 64 are only 384 warps for 528
+//   schedulers; 4 groups of 32 threads make 1536, 2.9 a scheduler, each
+//   over a quarter of a ring, and 3072 at the surf shape. Chunks of 4 slots
+//   keep the resolve pass short. tools/profile_ring_variants.py --shapes
+//   times the others (PERF.md): the differences are a few tenths of a
+//   microsecond, and at the corner shape the launch alone takes ~2.1 us and
+//   everything but the chunk loop ~2.9 us of the kernel's ~5.5. The resolve
+//   reads the winning chunk's slots from global memory (L1 / L2: the slab
+//   was just staged from there).
+// - Every slot of every ring is visited, SENTINEL slots included: live slots
+//   need not be a prefix, and the bound counts them all. Inputs must be
+//   finite (slabs pad with the finite SENTINEL): a ragged last chunk pads
+//   with +inf coordinates, whose distance +inf never wins.
+//
+// ring_argmin2 keeps the first shape: one block per (ring, 128-query tile),
+// the [3, C] slab in shared memory read three floats a slot, one query a
+// thread, two passes over the ring (the second recomputes the distances with
+// the winner's slot masked rather than storing them). Its outputs equal K2's
+// four, bit for bit; ring_min1's equal K2's first two.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+// ring_min1's block shape, settable from nvcc's command line for
+// tools/profile_ring_variants.py --shapes, which times others.
+#ifndef VLOAM_S1_GROUP
+#define VLOAM_S1_GROUP 32
+#endif
+#ifndef VLOAM_S1_SPLIT
+#define VLOAM_S1_SPLIT 4
+#endif
+#ifndef VLOAM_S1_QPT
+#define VLOAM_S1_QPT 4
+#endif
+#ifndef VLOAM_S1_CHUNK
+#define VLOAM_S1_CHUNK 4
+#endif
+// the part of ring_min1's work that runs, for the measurement: 0 all, 1 none
+// (launch only), 2 all but the chunk loop
+#ifndef VLOAM_S1_PART
+#define VLOAM_S1_PART 0
+#endif
+
 namespace {
 
+// ring_argmin2's block: one query a thread
 constexpr int kThreads = 128;
 constexpr float kBig = 3.9e12f;  // > any sentinel distance (~3e12)
+
+// ring_min1's block shape (see the notes above)
+constexpr int kGroup = VLOAM_S1_GROUP;  // threads that share a set of queries
+constexpr int kSplit = VLOAM_S1_SPLIT;  // groups a block
+constexpr int kMin1Threads = kSplit * kGroup;
+constexpr int kQpt = VLOAM_S1_QPT;      // queries a thread
+constexpr int kChunk = VLOAM_S1_CHUNK;  // slots a chunk
+constexpr int kTile = 512;              // slots staged at a time
+constexpr int kPart = VLOAM_S1_PART;
+static_assert(kTile % kChunk == 0, "a tile is whole chunks");
 
 __device__ __forceinline__ float dist_sq(float qx, float qy, float qz,
                                          float cx, float cy, float cz) {
@@ -52,29 +117,119 @@ __device__ __forceinline__ void stage_ring(float* ring,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// (a, ia) before (b, ib): the smaller minimum, the earlier chunk on ties
+__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
+  return a < b || (a == b && ia < ib);
+}
+
+__global__ void __launch_bounds__(kMin1Threads)
 ring_min1_kernel(const float* __restrict__ queries,  // [Q, 3]
                  const float* __restrict__ slab_t,   // [S, 3, C]
                  float* __restrict__ dmin, int* __restrict__ amin,
                  int Q, int C) {
-  extern __shared__ float ring[];  // [3, C]
-  stage_ring(ring, slab_t, C);
-  const int q = blockIdx.y * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
-  const float qx = queries[3 * q], qy = queries[3 * q + 1],
-              qz = queries[3 * q + 2];
-  float m1 = CUDART_INF_F;
-  int i1 = 0;
-  for (int c = 0; c < C; ++c) {
-    const float d = dist_sq(qx, qy, qz, ring[c], ring[C + c], ring[2 * C + c]);
-    if (d < m1) {
-      m1 = d;
-      i1 = c;
+  __shared__ float4 tile[kTile];
+  // each group's best chunk per query: minimum and chunk id
+  __shared__ float s_m[kSplit][kQpt][kGroup];
+  __shared__ int s_c[kSplit][kQpt][kGroup];
+  const int s = blockIdx.x;
+  const int grp = threadIdx.x / kGroup;
+  const int tid = threadIdx.x % kGroup;
+  const float* ring = slab_t + static_cast<size_t>(s) * 3 * C;
+  const int q0 = blockIdx.y * (kGroup * kQpt) + tid;
+  if (kPart == 1) return;
+
+  float qx[kQpt], qy[kQpt], qz[kQpt];
+  float m1[kQpt];  // the smallest chunk minimum
+  int c1[kQpt];    // and its chunk
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    // queries past Q repeat the last one and are not stored
+    const int q = min(q0 + j * kGroup, Q - 1);
+    qx[j] = queries[3 * q];
+    qy[j] = queries[3 * q + 1];
+    qz[j] = queries[3 * q + 2];
+    m1[j] = CUDART_INF_F;
+    c1[j] = 0;
+  }
+
+  for (int t0 = 0; t0 < C; t0 += kTile) {
+    const int n = min(kTile, C - t0);
+    const int n_chunks = (n + kChunk - 1) / kChunk;
+    __syncthreads();  // the previous tile is done with
+    for (int i = threadIdx.x; i < n_chunks * kChunk; i += kMin1Threads) {
+      const int c = t0 + i;
+      tile[i] = c < C ? make_float4(ring[c], ring[C + c], ring[2 * C + c], 0.f)
+                      : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                                    0.f);
+    }
+    __syncthreads();
+    // group g takes the g-th share of the tile's chunks
+    const int per = (n_chunks + kSplit - 1) / kSplit;
+    const int ch_end = kPart == 2 ? 0 : min(n_chunks, (grp + 1) * per);
+    for (int ch = grp * per; ch < ch_end; ++ch) {
+      float lo[kQpt];
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        // one broadcast load for kQpt queries
+        const float4 p = tile[ch * kChunk + k];
+#pragma unroll
+        for (int j = 0; j < kQpt; ++j) {
+          const float d = dist_sq(qx[j], qy[j], qz[j], p.x, p.y, p.z);
+          lo[j] = k == 0 ? d : fminf(lo[j], d);
+        }
+      }
+      const int id = t0 / kChunk + ch;
+#pragma unroll
+      for (int j = 0; j < kQpt; ++j) {
+        c1[j] = lo[j] < m1[j] ? id : c1[j];
+        m1[j] = fminf(m1[j], lo[j]);
+      }
     }
   }
-  const size_t o = static_cast<size_t>(blockIdx.x) * Q + q;
-  dmin[o] = m1;
-  amin[o] = i1;
+
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    s_m[grp][j][tid] = m1[j];
+    s_c[grp][j][tid] = c1[j];
+  }
+  __syncthreads();
+
+  // the groups share the queries: merge the groups' best chunks, then the
+  // strict running rule over the winning chunk's slots, in slot order
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    const int q = q0 + j * kGroup;
+    if (j % kSplit != grp || q >= Q) continue;
+    float bm = s_m[0][j][tid];
+    int bc = s_c[0][j][tid];
+#pragma unroll
+    for (int g = 1; g < kSplit; ++g) {
+      const float m = s_m[g][j][tid];
+      const int c = s_c[g][j][tid];
+      if (before(m, c, bm, bc)) {
+        bm = m;
+        bc = c;
+      }
+    }
+    const float x = qx[j], y = qy[j], z = qz[j];
+    const int c0 = bc * kChunk;
+    float r1 = CUDART_INF_F;
+    int i1 = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int c = c0 + k;
+      if (c >= C) break;  // a ragged last chunk
+      const float d = dist_sq(x, y, z, __ldg(ring + c), __ldg(ring + C + c),
+                              __ldg(ring + 2 * C + c));
+      if (d < r1) {
+        r1 = d;
+        i1 = c;
+      }
+    }
+    const size_t o = static_cast<size_t>(s) * Q + q;
+    dmin[o] = r1;
+    amin[o] = i1;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -129,11 +284,9 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 extern "C" int vloam_ring_min1(const float* queries, const float* slab_t,
                                float* dmin, int* amin, int Q, int S, int C,
                                void* stream) {
-  const size_t smem = static_cast<size_t>(3) * C * sizeof(float);
-  const cudaError_t e = allow_smem(ring_min1_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(S, (Q + kThreads - 1) / kThreads);
-  ring_min1_kernel<<<grid, kThreads, smem,
+  const int per_block = kGroup * kQpt;
+  const dim3 grid(S, (Q + per_block - 1) / per_block);
+  ring_min1_kernel<<<grid, kMin1Threads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       queries, slab_t, dmin, amin, Q, C);
   return static_cast<int>(cudaGetLastError());

@@ -1,11 +1,13 @@
-"""Crafted inputs for the two kernels whose rules are easiest to get wrong:
-K1 select_rings (strict sector selection) and K2 ring_min2 (per-ring
-2-smallest). Plain numpy from a seed; no device logic.
+"""Crafted inputs for the kernels whose rules are easiest to get wrong: K1
+select_rings (strict sector selection), K2 ring_min2 (per-ring 2-smallest),
+S1 ring_min1 (per-ring minimum) and K3 zncc_describe (patch descriptors).
+Plain numpy from a seed; no device logic.
 
 The same cases are used three times: the CPU tests hold the plain PyTorch
 versions to the JAX package on them (tests/test_torch_scan_registration.py,
-tests/test_torch_ring_assoc.py), the GPU tests hold the kernels to the plain
-versions (tests/test_torch_kernels_cuda.py), and so does chip_smoke.py.
+tests/test_torch_ring_assoc.py, tests/test_torch_vision.py), the GPU tests
+hold the kernels to the plain versions (tests/test_torch_kernels_cuda.py),
+and so does chip_smoke.py.
 
 K1 cases use the default selection constants (6 sectors, threshold 0.1,
 2 sharp / 20 corner / 4 flat picks a sector, gap^2 0.05). Each carries the
@@ -47,6 +49,13 @@ class Min2Case(NamedTuple):
     def slab_t(self) -> np.ndarray:
         """[S, 3, C], the layout the reductions take."""
         return np.ascontiguousarray(np.swapaxes(self.slab, 1, 2))
+
+
+class ZnccCase(NamedTuple):
+    name: str
+    img: np.ndarray  # [H, W] f32
+    xy: np.ndarray  # [K, 2] f32 pixel coordinates (x, y), K a multiple of 8
+    p: int
 
 
 def sector_bounds(count: int, j: int) -> tuple[int, int]:
@@ -222,4 +231,86 @@ def ring_min2_cases(seed: int = 16833) -> list[Min2Case]:
     slab[4, 16:] = SENTINEL
     slab[5][rng.random(130) < 0.7] = SENTINEL
     cases.append(Min2Case("sentinel_slots", queries(50), slab))
+    return cases
+
+
+def ring_min1_cases(seed: int = 16834) -> list[Min2Case]:
+    """Min-only slab shapes that ring_min1's block shape (queries a block,
+    chunks split between groups, tiles of 512 slots) divides unevenly, ring 0
+    all SENTINEL in each; and equal minima on both sides of chunk, group and
+    tile boundaries."""
+    rng = np.random.default_rng(seed)
+
+    def queries(Q):
+        return rng.uniform(-40, 40, (Q, 3)).astype(np.float32)
+
+    cases = []
+    for Q, C in ((1, 2), (255, 7), (257, 9), (769, 129), (769, 513),
+                 (257, 513), (1, 129), (255, 9), (769, 2)):
+        slab = _random_slab(rng, C)
+        slab[0] = SENTINEL
+        cases.append(Min2Case(f"min1_{Q}x{C}", queries(Q), slab))
+
+    # query s sits on a point of ring s that a later slot repeats: across a
+    # chunk, the halves of a 128- or 512-slot ring (2 groups), its quarters
+    # (4 groups), a tile boundary and the first and the last tile
+    slab = _random_slab(rng, 1100, live=True)
+    q = queries(96)
+    pairs = ((60, 64), (30, 100), (250, 260), (500, 515), (5, 1090),
+             (700, 1030), (127, 128), (3, 4))
+    for s, (a, b) in enumerate(pairs):
+        slab[s, b] = slab[s, a]
+        q[s] = slab[s, a]
+    cases.append(Min2Case("min1_duplicates_across_groups", q, slab))
+    return cases
+
+
+def _patch_at(x0: int, y0: int, p: int) -> list[float]:
+    """A keypoint whose p x p patch starts at (y0, x0)."""
+    return [x0 + p // 2 + 0.5, y0 + p // 2 + 0.5]
+
+
+def zncc_cases(seed: int = 16833) -> list[ZnccCase]:
+    """Images of uint8 grey levels (as the engines see them), 390 or 397
+    columns (row starts at every 16-byte alignment), keypoints at the four
+    corners, past every edge, at negative and .999 coordinates; flat
+    patches, exactly constant and with a zero-mean checkerboard whose centred
+    norm lies below or above the 1e-3 floor by 1.6x or more; p = 24, 16
+    and 7."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for p, W, H in ((24, 390, 80), (16, 390, 80), (7, 397, 41)):
+        img = (rng.integers(0, 256, (H, W)) / 255.0).astype(np.float32)
+        edge = [[0.0, 0.0], [W - 0.001, 0.0], [0.0, H - 0.001],
+                [W - 0.001, H - 0.001], [-5.0, 40.0], [W + 7.0, 30.0],
+                [100.0, -9.0], [120.0, H + 12.0], [-0.5, -0.5],
+                [-30.2, 10.7], [50.999, 30.999], [123.999, 7.999],
+                [W - 1.999, 20.5], [-1e4, 1e4]]
+        rest = np.stack([rng.uniform(0, W, 40 - len(edge)),
+                         rng.uniform(0, H, 40 - len(edge))], 1)
+        xy = np.concatenate([np.asarray(edge), rest]).astype(np.float32)
+        cases.append(ZnccCase(f"edges_p{p}", img, xy, p))
+
+    # flat patches: 24 x 24 regions at (y0, x0) = (8, 40 + 32 j); a p = 24
+    # or p = 16 patch centred there lies inside its region, and a zero-mean
+    # checkerboard of amplitude a has centred norm a * p
+    W, H = 390, 48
+    img = (rng.integers(0, 256, (H, W)) / 255.0).astype(np.float32)
+    board = np.where(np.add.outer(np.arange(24), np.arange(24)) % 2, 1.0,
+                     -1.0)
+    regions = (0.5 + 0 * board, 0.0 + 0 * board, 1.0 + 0 * board,
+               0.5 + 1.25e-5 * board,  # norm 3e-4 at p = 24, 2e-4 at 16
+               0.5 + 1.25e-4 * board,  # 3e-3 and 2e-3
+               0.25 + 2.5e-5 * board,  # 6e-4 and 4e-4: below
+               0.25 + 1e-4 * board)    # 2.4e-3 and 1.6e-3: above
+    for j, r in enumerate(regions):
+        img[8:32, 40 + 32 * j:64 + 32 * j] = r
+    for p in (24, 16):
+        o = (24 - p) // 2  # the p-patch centred in the 24 x 24 region
+        xy = [_patch_at(40 + 32 * j + o, 8 + o, p)
+              for j in range(len(regions))]
+        # a patch half on a flat region and half on texture
+        xy.append(_patch_at(40 + 32 * len(regions) - p // 2, 8, p))
+        cases.append(ZnccCase(f"flat_patches_p{p}", img,
+                              np.asarray(xy, np.float32), p))
     return cases

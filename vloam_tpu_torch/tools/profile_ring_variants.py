@@ -13,18 +13,18 @@ and distances identical) before it is timed. It also prints ``update_share``
 at each shape: how often a warp of K2 would have to enter an ordered top-2
 update if it skipped the chunks that cannot change a query's second minimum
 (the reason K2 tracks chunks without branches instead). With --shapes it
-also builds ring_min2.cu with other block shapes (threads a group, queries a
-thread, slots a chunk), checks each against the plain version and times it
-at the engines' two shapes (768 and 1536 queries). Needs a GPU.
+also builds ring_min2.cu (threads a group, queries a thread, slots a chunk)
+and ring_min1.cu (the same and groups a block) with other block shapes,
+checks each against the plain version and times it at the engines' two
+shapes (768 and 1536 queries), and times ring_min1 with parts of its work
+switched off (launch only; all but the chunk loop). Needs a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -126,67 +126,86 @@ def run(shapes=SHAPES, runs: int = 30) -> dict:
     return out
 
 
-# (threads a group, queries a thread, slots a chunk); the first is the
-# kernel's own
+# K2 (ring_min2.cu): (threads a group, queries a thread, slots a chunk);
+# the first is the kernel's own
 BLOCK_SHAPES = ((64, 4, 8), (128, 4, 8), (32, 4, 8), (64, 2, 8), (128, 2, 8),
                 (64, 6, 8), (64, 4, 4), (64, 4, 16))
+# ring_min1 (ring_min1.cu): (threads a group, queries a thread, groups a
+# block, slots a chunk); the first is the kernel's own
+MIN1_BLOCK_SHAPES = ((32, 4, 4, 4), (32, 4, 4, 8), (32, 4, 4, 2),
+                     (32, 2, 4, 4), (64, 4, 4, 4), (64, 2, 4, 4),
+                     (64, 2, 2, 4), (64, 2, 2, 8), (64, 4, 2, 4),
+                     (32, 4, 2, 4), (32, 8, 4, 4), (64, 4, 1, 8))
+# ring_min1's own shape with parts of its work switched off (VLOAM_S1_PART)
+MIN1_PARTS = ((1, "launch only"), (2, "no chunk loop"))
+_SWEEPS = {
+    "ring_min2": ("ring_min2.cu", ("VLOAM_K2_GROUP", "VLOAM_K2_QPT",
+                                   "VLOAM_K2_CHUNK"), 4, ring_min2_plain,
+                  "threads a group, queries a thread, slots a chunk"),
+    "ring_min1": ("ring_min1.cu", ("VLOAM_S1_GROUP", "VLOAM_S1_QPT",
+                                   "VLOAM_S1_SPLIT", "VLOAM_S1_CHUNK"), 2,
+                  ring_min1_plain, "threads a group, queries a thread, "
+                  "groups a block, slots a chunk"),
+}
 
 
-def run_block_shapes(block_shapes=BLOCK_SHAPES, shapes=ENGINE_SHAPES,
-                     runs: int = 30) -> None:
-    """K2 built with other constants, each held to the plain version and
-    timed at the engines' shapes (on the synthetic rings of make())."""
+def run_block_shapes(name: str = "ring_min2", block_shapes=BLOCK_SHAPES,
+                     parts=(), shapes=ENGINE_SHAPES, runs: int = 30) -> dict:
+    """K2 or ring_min1 built with other block-shape constants, each held to
+    the plain version and timed at the engines' shapes (on the synthetic
+    rings of make()), then the first shape with each of `parts` ((code,
+    label): VLOAM_S1_PART, not checked); returns {(label, shape name): ms}."""
     require_cuda()
-    src = str(build.CSRC / "ring_min2.cu")
+    source, keys, n_out, plain, what = _SWEEPS[name]
     p, i = ctypes.c_void_p, ctypes.c_int
-    inputs = {name: make(S, C, Q) for name, S, C, Q in shapes}
-    want = {name: ring_min2_plain(*qs) for name, qs in inputs.items()}
+    inputs = {shape: make(S, C, Q) for shape, S, C, Q in shapes}
+    want = {shape: plain(*qs) for shape, qs in inputs.items()}
+    variants = [(f"block shape {b} ({what})", dict(zip(keys, b)), True)
+                for b in block_shapes]
+    variants += [(f"block shape {block_shapes[0]}, {label}",
+                  {**dict(zip(keys, block_shapes[0])), "VLOAM_S1_PART": code},
+                  False) for code, label in parts]
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = [str(Path(tmp) / f"k2_{g}_{q}_{c}.so")
-                for g, q, c in block_shapes]
-        procs = [subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
-             f"-DVLOAM_K2_GROUP={g}", f"-DVLOAM_K2_QPT={q}",
-             f"-DVLOAM_K2_CHUNK={c}", "-o", so, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for (g, q, c), so in zip(block_shapes, libs)]
-        for (g, q, c), so, proc in zip(block_shapes, libs, procs):
-            log = proc.communicate()[0]
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed:\n{log}")
-            used = [ln.split("Used ")[1] for ln in log.splitlines()
-                    if "Used " in ln]
+        libs = build.build_variants(build.CSRC / source,
+                                    [d for _, d, _ in variants], tmp)
+        for (label, _, checked), (so, log) in zip(variants, libs):
             lib = ctypes.CDLL(so)
-            lib.vloam_ring_min2.argtypes = [p, p, p, p, p, p, i, i, i, p]
-            lib.vloam_ring_min2.restype = i
+            fn = getattr(lib, f"vloam_{name}")
+            fn.argtypes = [p, p] + [p] * n_out + [i, i, i, p]
+            fn.restype = i
             line = []
-            for name, (queries, slab_t) in inputs.items():
+            for shape, (queries, slab_t) in inputs.items():
                 Q, S, C = queries.shape[0], slab_t.shape[0], slab_t.shape[2]
 
                 def launch():
                     outs = [torch.empty((S, Q), device=queries.device,
                                         dtype=torch.int32 if k % 2
-                                        else torch.float32) for k in range(4)]
-                    err = lib.vloam_ring_min2(
-                        queries.data_ptr(), slab_t.data_ptr(),
-                        *(o.data_ptr() for o in outs), Q, S, C,
-                        torch.cuda.current_stream().cuda_stream)
+                                        else torch.float32)
+                            for k in range(n_out)]
+                    err = fn(queries.data_ptr(), slab_t.data_ptr(),
+                             *(o.data_ptr() for o in outs), Q, S, C,
+                             torch.cuda.current_stream().cuda_stream)
                     if err:
                         raise RuntimeError(f"launch failed: CUDA error {err}")
                     return outs
 
                 got = launch()
                 torch.cuda.synchronize()
-                if not all(torch.equal(a, b)
-                           for a, b in zip(got, want[name])):
+                if checked and not all(torch.equal(a, w)
+                                       for a, w in zip(got, want[shape])):
                     raise RuntimeError(
-                        f"block shape {(g, q, c)} differs from the plain "
-                        f"version at the {name} shape")
-                ms = device_ms(launch, runs, cold=False)
-                line.append(f"{name} {ms * 1e3:.1f} us")
-            print(f"ring_min2 with {g} threads a group, {q} queries a thread,"
-                  f" chunks of {c}: " + ", ".join(line)
-                  + f" ({'; '.join(used)})", flush=True)
+                        f"{name} {label} differs from the plain version at "
+                        f"the {shape} shape")
+                out[label, shape] = device_ms(launch, runs, cold=False)
+                line.append(f"{shape} {out[label, shape] * 1e3:.1f} us")
+            usage = "; ".join(
+                f"{k} {u['registers']} registers, {u['spill_stores']} B "
+                f"spilled, {u['smem']} B shared"
+                for k, u in build.parse_report(log).items() if name in k)
+            print(f"{name} {label}: " + ", ".join(line) + f" ({usage})",
+                  flush=True)
+    return out
 
 
 def main() -> None:
@@ -194,7 +213,8 @@ def main() -> None:
     print(card_line(), flush=True)
     run()
     if "--shapes" in sys.argv[1:]:
-        run_block_shapes()
+        run_block_shapes("ring_min2", BLOCK_SHAPES)
+        run_block_shapes("ring_min1", MIN1_BLOCK_SHAPES, MIN1_PARTS)
 
 
 if __name__ == "__main__":

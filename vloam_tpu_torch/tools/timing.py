@@ -103,3 +103,12 @@ def ring_reduce_bound(Q: int, S: int, C: int, n_out: int) -> tuple[float, str]:
     [S, Q] 4-byte outputs written once."""
     ops = S * Q * C * (8 + n_out // 2)
     return bound_ms(Q * 12 + S * 3 * C * 4 + n_out * S * Q * 4, ops)
+
+
+def zncc_bound(K: int, p: int, H: int, W: int) -> tuple[float, str]:
+    """K3: the [H, W] image, the [K, 2] keypoints and the [K, p*p]
+    descriptors once, all float32; per descriptor element 5 operations (an
+    add for the mean, a subtract, a multiply and an add for the centred
+    norm, the multiply that scales it)."""
+    n_desc = K * p * p
+    return bound_ms(4 * (H * W + 2 * K + n_desc), 5 * n_desc)
