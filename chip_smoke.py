@@ -7,8 +7,8 @@ batch engine.
 Phases (one line each; any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit; CUDA required, TF32 off
   2. build: compile the hand-written kernels from kernels/csrc with nvcc;
-     ptxas' registers, spills and shared memory of the four redesigned
-     kernels (K1, K2, K3, ring_min1)
+     ptxas' registers, spills and shared memory of the six redesigned
+     kernels (K1, K2, K3, ring_min1, ring_argmin2, grid_probe)
   frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
      1242 x 375 camera images, and three more 20-frame polar drives for the
      batch engine's other streams, rendered in worker processes
@@ -22,9 +22,10 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      on K2's crafted cases (duplicates across chunk and tile boundaries,
      SENTINEL slots between live ones, counts that fit no tile), on the
      min-only slab shapes (counts ring_min1's block shape divides unevenly,
-     equal minima across its groups) and at the two shapes of the
-     ring-variants measurement; times beside those of the kernels before
-     their redesign
+     equal minima across its groups), on ring_argmin2's (the runner-up at
+     the winner's distance, the winner in the last slot, slot counts no tile
+     divides, rings all SENTINEL) and at the two shapes of the ring-variants
+     measurement; times beside those of the kernels before their redesign
   5. end to end: LoamEngine(kitti_hdl64(), chunk=16, device="cuda") over the
      drive; frames/s, kernel launch counts, MO error against ground truth,
      no host sync in the timed frames
@@ -38,21 +39,27 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      chunk=16, device="cuda") over the drive and its images; frames/s, kernel
      launch counts, LO / MO error and VO ATE against ground truth, no host
      sync
-  9. the first 4 frames of phase 8 again on the CPU: LO, MO and VO agree
+  9. the depth grid of one more real frame of phase 8's engine built twice
+     on the card: identical (it fails otherwise), and beside the CPU's; the
+     first 4 frames of phase 8 again on the CPU: LO, MO and VO agree
   10. batch end to end: BatchLoamEngine(kitti_hdl64(), 4, chunk=4,
      device="cuda") over 20 lockstep frames of 4 drives; aggregate frames/s
      beside the single engine's on the same frames, launches per lockstep
      frame, MO error per stream, each stream against its single-engine run,
      no host sync
   11. the first 2 lockstep frames of 2 streams again on the CPU
-  S2. row_gather vs table[idx] (bit-identical) and torch.index_select on the
-     four gathers of a real frame of the single engine (probe 16384 x 96 and
-     49152 x 48 floats from [2^17, W] tables, insert 2048 and 6144 rows), on
-     the four of a lockstep frame of the batch engine (4x the rows, from the
-     flat [4 * 2^17, W] tables, ids carrying the stream offsets) and at
-     [2^17, 96] x 65536 random
+  S2. grid_probe vs the plain pair (bit-identical) on the probe of a real
+     frame of the single engine (2048 corner queries into [2^17, 96], 6144
+     surf queries into [2^17, 48], one launch) and of a lockstep frame of
+     the batch engine (4x the queries, flat [4 * 2^17, W] tables, rows up to
+     the last stream); times beside the parent's composition (the plain
+     pair: 8 hashes, row_gather, permute copy, each grid) and its parts;
+     row_gather vs table[idx] (bit-identical) and torch.index_select on the
+     two insert gathers of each of those frames (2048 and 6144 rows, 4x in
+     the batch) and at [2^17, 96] x 65536 random
   12. the ring-variants measurement entry point (ring_argmin2's path): its
-     check against the plain version and its times
+     check against the plain version and its times, beside ring_argmin2's
+     before its redesign
   13. launches per frame: torch.profiler over steady frames of each engine,
      with the device time per launch of each hand-written kernel there (K3's
      in VloamEngine: the L2 the engine leaves it); printed, not gated: the
@@ -62,9 +69,10 @@ temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
 the kernels' line takes its times and its bound at the shapes of the path
 that its launches are counted on: the batch drive (phase 10) for
-select_rings, ring_min2, ring_min1 (per stream: the single engine's shapes)
-and row_gather (the flat surf probe), the combined engine (phase 8) for
-zncc_describe, the ring-variants entry point (phase 12) for ring_argmin2.
+select_rings, ring_min2, ring_min1 (per stream: the single engine's shapes),
+grid_probe (the lockstep frame's probe of both grids) and row_gather (the
+flat surf insert), the combined engine (phase 8) for zncc_describe, the
+ring-variants entry point (phase 12) for ring_argmin2.
 
 Kernel times are device times (vloam_tpu_torch.tools.timing.device_ms: CUDA
 events around 20 calls queued behind a blocker, so the ~30 us host call of a
@@ -107,8 +115,7 @@ VLOAM_CPU_FRAMES = 4
 PROFILE_FRAMES = 8
 # card vs CPU bounds of the combined engine, in metres over the first
 # VLOAM_CPU_FRAMES frames: LO and MO as phase 6 (the golden tolerances);
-# VO as MO (the depth grid adds by atomics on the card, and the VO LM sums
-# in another order)
+# VO as MO (the VO LM sums in another order on the card)
 VLOAM_CPU_TOL = {"LO": 2e-2, "MO": 3e-2, "VO": 3e-2}
 
 
@@ -124,6 +131,10 @@ K2_BEFORE_US = {"surf": 44.6, "corner": 8.3}
 # and 4 (PERF.md section 6)
 K3_BEFORE_US = 15.4
 RING_MIN1_BEFORE_US = {"corner": 6.2, "surf": 31.6}
+# ... and of the first ring_argmin2 (one query a thread, two passes over a
+# [3, C] slab read three floats a slot) at the ring-variants entry point's
+# surf shape 2048 x [64,3,512], as phase 12 times it (PERF.md section 6)
+RING_ARGMIN2_BEFORE_US = 83.39
 
 
 def fail(msg: str) -> None:
@@ -193,7 +204,8 @@ def build_phase() -> None:
     lib = build.build()
     build.load()
     redesigned = {"select_rings_kernel", "ring_min2_kernel",
-                  "zncc_describe_kernel", "ring_min1_kernel"}
+                  "zncc_describe_kernel", "ring_min1_kernel",
+                  "ring_argmin2_kernel", "grid_probe_kernel"}
     usage = {k: v for k, v in build.resource_usage().items()
              if k.split("<")[0] in redesigned}
     if {k.split("<")[0] for k in usage} != redesigned:
@@ -384,7 +396,8 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
     got = ra.ring_min1(q.cuda(), slab_t)
     if int(got[1][0, 0]) != 7 or int(got[1][1, 5]) != 0:
         fail("ring_min1 tie rules")
-    cases = kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases()
+    cases = (kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases()
+             + kernel_cases.ring_argmin2_cases())
     for case in cases:
         _ring_check(torch.from_numpy(case.queries).cuda(),
                     torch.from_numpy(case.slab_t).cuda(),
@@ -453,10 +466,10 @@ def _sync_free(push, ks):
 def lidar_launches(n: int, **more) -> dict:
     """Launches of n single-stream frames: K1 once; LO associates twice per
     frame (K2 for surf, ring_min1 for corner each time); the mapping stage
-    gathers rows 4 times (2 probes, 2 inserts)."""
+    probes both grids in one launch and gathers rows for its 2 inserts."""
     return {"select_rings": n, "ring_min2": 2 * n, "ring_min1": 2 * n,
-            "row_gather": 4 * n, "zncc_describe": 0, "ring_argmin2": 0,
-            **more}
+            "row_gather": 2 * n, "grid_probe": n, "zncc_describe": 0,
+            "ring_argmin2": 0, **more}
 
 
 def e2e_phase(cfg, frames, poses):
@@ -524,35 +537,119 @@ def cpu_phase(cfg, frames, res_gpu) -> None:
 
 
 def _capture_gathers(run):
-    """The (table, idx) arguments of every row gather that run() makes, in
-    the single-stream map (gridmap) and in the flat batch map
-    (batch_mapping, which binds the dispatcher under its own name)."""
-    from vloam_tpu_torch.lidar import batch_mapping, gridmap
+    """What run() gives the map: the (table, idx) of every row gather (the
+    inserts; gridmap, and batch_mapping, which binds the dispatcher under
+    its own name) and the arguments of every probe pair (mapping's
+    grid_gather_pair, batch_mapping's batch_grid_gather_pair)."""
+    from vloam_tpu_torch.lidar import batch_mapping, gridmap, mapping
 
-    seen = []
-    real = gridmap.row_gather
+    gathers, probes = [], []
+    real = (gridmap.row_gather, mapping.grid_gather_pair,
+            batch_mapping.batch_grid_gather_pair)
 
-    def recorder(table, idx):
-        seen.append((table, idx))
-        return real(table, idx)
+    def row_gather(table, idx):
+        gathers.append((table, idx))
+        return real[0](table, idx)
 
-    gridmap.row_gather = batch_mapping.row_gather = recorder
+    def pair(*args):
+        probes.append(args)
+        return real[1](*args)
+
+    def batch_pair(*args):
+        probes.append(args)
+        return real[2](*args)
+
+    gridmap.row_gather = batch_mapping.row_gather = row_gather
+    mapping.grid_gather_pair = pair
+    batch_mapping.batch_grid_gather_pair = batch_pair
     try:
         run()
     finally:
-        gridmap.row_gather = batch_mapping.row_gather = real
+        gridmap.row_gather = batch_mapping.row_gather = real[0]
+        mapping.grid_gather_pair = real[1]
+        batch_mapping.batch_grid_gather_pair = real[2]
     torch.cuda.synchronize()
-    return seen
+    return gathers, probes
 
 
-_GATHERS = ("corner probe", "surf probe", "corner insert", "surf insert")
+def _probe_check(who, args, B, nb):
+    """grid_probe against the plain pair on one frame's probe arguments:
+    bit-identical, or the run fails. Returns the largest |difference| and,
+    for the timing, the kernel's call, the plain pair's (the parent's
+    composition: the host's time to queue it, which outlasts the device's),
+    the plain pair replayed from a CUDA graph (its device time), its row
+    gathers and its permute copies alone, and per grid (Q, cap, distinct
+    rows)."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.lidar import batch_mapping as bm
+    from vloam_tpu_torch.lidar import gridmap
+    from vloam_tpu_torch.tools import timing
+
+    g_c, q_c, cell_c, g_s, q_s, cell_s = args[:6]
+    if B == 1:
+        def kernel():
+            return gridmap.grid_gather_pair(*args)
+
+        def plain():
+            return (gridmap.grid_gather_plain(g_c, q_c, cell_c),
+                    gridmap.grid_gather_plain(g_s, q_s, cell_s))
+        want_q = [(2048, 3), (6144, 3)]
+    else:
+        def kernel():
+            return bm.batch_grid_gather_pair(*args)
+
+        def plain():
+            return (bm.batch_grid_gather_plain(g_c, q_c, cell_c, B),
+                    bm.batch_grid_gather_plain(g_s, q_s, cell_s, B))
+        want_q = [(B, 2048, 3), (B, 6144, 3)]
+    if [tuple(q.shape) for q in (q_c, q_s)] != want_q:
+        fail(f"S2: the {who} probes {q_c.shape} {q_s.shape}, want {want_q}")
+    n0 = kernels.LAUNCHES["grid_probe"]
+    got = kernel()
+    if kernels.LAUNCHES["grid_probe"] != n0 + 1:
+        fail(f"S2: the {who} probe pair did not launch grid_probe once")
+    want = plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, what in zip(got, want, ("corner", "surf")):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            fail(f"S2 grid_probe {who} {what}: differs from the plain pair "
+                 f"at {int((g != w).sum())} elements")
+        err = max(err, float((g - w).abs().max()))
+    grids, rows, flat = [], [], []
+    for g, q, cell in ((g_c, q_c, cell_c), (g_s, q_s, cell_s)):
+        ids = gridmap.probe_buckets(q.reshape(B, -1, 3), cell, nb)
+        ids = ids + (torch.arange(B, device=q.device) * nb)[:, None, None]
+        ids = ids.reshape(-1)
+        grids.append((ids.numel() // 8, g.cap, len(torch.unique(ids))))
+        rows.append((g.pts, ids))
+        flat.append(g.pts.reshape(-1, 3, g.cap))
+    if B > 1 and int(rows[1][1].max()) // nb != B - 1:
+        fail(f"S2: the {who} surf probe's highest row is not in stream "
+             f"{B - 1}")
+
+    def gathers():
+        return [kernels.row_gather(t, i) for t, i in rows]
+
+    rowed = gathers()
+
+    def permutes():
+        return [r.reshape(-1, 8, 3, f.shape[2]).permute(2, 0, 1, 3)
+                .reshape(3, -1, 8 * f.shape[2]) for r, f in zip(rowed, flat)]
+
+    return err, kernel, plain, {"the plain pair as one CUDA graph":
+                                timing.graphed(plain),
+                                "row_gather x2": gathers,
+                                "permute copy x2": permutes}, grids
 
 
-def s2_phase(eng, frame, beng, streams) -> dict:
-    """S2 against its plain version on the four gathers of one more real
-    frame through the phase-5 engine (its map holds the whole drive), on the
-    four of one more lockstep frame through the phase-10 batch engine (flat
-    tables of all streams, ids with stream offsets) and at the measurement's
+def s2_phase(eng, frame, beng, streams) -> tuple[dict, dict]:
+    """S2 on one more real frame through the phase-5 engine (its map holds
+    the whole drive) and one more lockstep frame through the phase-10 batch
+    engine (flat tables of all streams, ids with stream offsets):
+    grid_probe against the plain pair on the probe of both grids, timed
+    beside the plain pair and its parts; row_gather against its plain
+    version on the two insert gathers of each, and at the measurement's
     [2^17, 96] x 65536 random shape."""
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar import gridmap
@@ -568,22 +665,44 @@ def s2_phase(eng, frame, beng, streams) -> dict:
         beng.finish()
 
     nb = 1 << 17
-    cases = []
+    cases, probes = [], {}
     for who, run, B in (("frame", one_frame, 1),
                         ("batch", one_lockstep_frame, BATCH)):
-        seen = _capture_gathers(run)
-        shapes = [(tuple(t.shape), len(i)) for t, i in seen]
-        want = [((B * nb, 96), B * 16384), ((B * nb, 48), B * 49152),
-                ((B * nb, 96), B * 2048), ((B * nb, 48), B * 6144)]
-        if shapes != want:
-            fail(f"S2: the {who} gathers are {shapes}, want {want}")
-        cases += [(f"{who} {what}", t, i) for what, (t, i) in zip(_GATHERS,
-                                                                  seen)]
-    # the batch probe really spans the streams' tables
-    top = int(cases[5][2].max()) // nb
+        gathers, pairs = _capture_gathers(run)
+        shapes = [(tuple(t.shape), len(i)) for t, i in gathers]
+        want = [((B * nb, 96), B * 2048), ((B * nb, 48), B * 6144)]
+        if shapes != want or len(pairs) != 1:
+            fail(f"S2: the {who} gathers are {shapes} and {len(pairs)} probe "
+                 f"pairs, want {want} and 1")
+        cases += [(f"{who} {what}", t, i) for what, (t, i) in zip(
+            ("corner insert", "surf insert"), gathers)]
+        probes[who] = _probe_check(who, pairs[0], B, nb)
+    # the batch insert really spans the streams' tables
+    top = int(cases[3][2].max()) // nb
     if top != BATCH - 1:
-        fail(f"S2: the batch surf probe's highest row is in stream {top}")
+        fail(f"S2: the batch surf insert's highest row is in stream {top}")
     cases.append(("random", *prg.make()))
+
+    line, rows_probe, err_probe = [], {}, 0.0
+    for who, (err, kernel, plain, parts, grids) in probes.items():
+        err_probe = max(err_probe, err)
+        ms = timing.device_ms(kernel)
+        warm = timing.device_ms(kernel, cold=False)
+        plain_ms = timing.device_ms(plain)
+        part_ms = {k: timing.device_ms(f) for k, f in parts.items()}
+        bound = timing.grid_probe_bound(grids)
+        rows_probe[who] = (ms, plain_ms, bound, None)
+        line.append(
+            f"{who} probe (" + " + ".join(
+                f"{Q} queries x 8 cells of cap {cap}, {n} distinct rows"
+                for Q, cap, n in grids)
+            + f"): kernel {ms * 1e3:.1f} us ({warm * 1e3:.1f} warm L2), "
+            f"plain pair (the parent's composition) {plain_ms * 1e3:.1f}, "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in part_ms.items())
+            + f", bound {bound[0] * 1e3:.1f} ({ms / bound[0]:.2f}x)")
+    print("[S2 grid_probe] bit-identical to the plain pair; device time, "
+          "cold L2: " + "; ".join(line) + f" {clocks()}", flush=True)
+
     line, rows, err = [], {}, 0.0
     for what, table, idx in cases:
         got = gridmap.row_gather(table, idx)
@@ -611,11 +730,15 @@ def s2_phase(eng, frame, beng, streams) -> dict:
                     f"bound {bound[0] * 1e3:.1f}")
     print("[S2 row_gather] bit-identical to table[idx]; device time, cold "
           "L2: " + "; ".join(line) + f" {clocks()}", flush=True)
-    # the row: the largest gather of the path the launches are counted on,
-    # the batch drive's flat surf probe
-    return kernel_row("row_gather", "row_gather.cu",
-                      "scripts/profile_pallas_gather.py:55", err,
-                      *rows["batch surf probe"])
+    # the rows: the shapes of the path the launches are counted on, the
+    # batch drive: its lockstep frame's probe, its flat surf insert. No one
+    # PyTorch call computes the probe (hashes, gather and layout)
+    return (kernel_row("grid_probe", "grid_probe.cu",
+                       "scripts/profile_pallas_gather.py:55", err_probe,
+                       *rows_probe["batch"]),
+            kernel_row("row_gather", "row_gather.cu",
+                       "scripts/profile_pallas_gather.py:55", err,
+                       *rows["batch surf insert"]))
 
 
 def _lockstep(eng, streams, ks) -> None:
@@ -684,7 +807,8 @@ def batch_phase(cfg, streams, stream_poses):
               f"LO {d['LO']:.2e} MO {d['MO']:.2e}" for d in diffs)
           + f" m; peak device memory {peak:.0f} MiB; host syncs in the timed "
           f"frames {len(syncs)} {clk}", flush=True)
-    want = lidar_launches(BATCH * BATCH_FRAMES, row_gather=4 * BATCH_FRAMES)
+    want = lidar_launches(BATCH * BATCH_FRAMES, row_gather=2 * BATCH_FRAMES,
+                          grid_probe=BATCH_FRAMES)
     if launches != want:
         fail(f"batch kernel launch counts {launches}, want {want}")
     if syncs:
@@ -737,6 +861,10 @@ def ring_variants_phase(err: float) -> dict:
             and kernels.LAUNCHES["ring_min2"] > 0):
         fail(f"the ring-variants entry point launched {kernels.LAUNCHES}")
     name, S, C, Q = prv.SHAPES[1]
+    print(f"[12] ring_argmin2 at {Q} x [{S},3,{C}]: "
+          f"{ms[name]['ring_argmin2'] * 1e3:.2f} us ({RING_ARGMIN2_BEFORE_US}"
+          f" us before the redesign), ring_min2 "
+          f"{ms[name]['ring_min2'] * 1e3:.2f} us {clocks()}", flush=True)
     row = kernel_row("ring_argmin2", "ring_min1.cu", S1_REPLACES, err,
                      ms[name]["ring_argmin2"], ms[name]["plain min2"],
                      timing.ring_reduce_bound(Q, S, C, 4))
@@ -883,10 +1011,47 @@ def vloam_phase(cfg, frames, images, poses, calib):
         fail(f"MO error {err['MO']} m >= 0.15 m")
     if err["n32"] == 0:
         fail("a frame after the first had no depth-backed VO match")
-    return res, launches
+    return res, launches, depth_grid_check(eng, frames[N_FRAMES - 1],
+                                           images[N_FRAMES - 1])
 
 
-def vloam_cpu_phase(cfg, frames, images, calib, res_gpu) -> None:
+def depth_grid_check(eng, frame, image) -> str:
+    """The depth grid of one more real frame through the phase-8 engine,
+    built again twice from the inputs the engine gave it: identical, or the
+    run fails (its per-cell sums add in a fixed order); and beside the
+    CPU's."""
+    from vloam_tpu_torch import vloam_step
+    from vloam_tpu_torch.vision import depth_map
+
+    seen = []
+    real = vloam_step.build_depth_grid
+
+    def recorder(*args):
+        seen.append(args)
+        return real(*args)
+
+    vloam_step.build_depth_grid = recorder
+    try:
+        eng.push_polar(frame, image)
+        eng.finish()
+    finally:
+        vloam_step.build_depth_grid = real
+    scan, mask, P, vo = seen[0]
+    grids = [depth_map.build_depth_grid(scan, mask, P, vo) for _ in range(2)]
+    cpu = depth_map.build_depth_grid(scan.cpu(), mask.cpu(), P.cpu(), vo)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*grids)):
+        fail("the depth grid differs between two builds on the card")
+    same = all(torch.equal(a.cpu(), c) for a, c in zip(grids[0], cpu))
+    diff = max(float((a.cpu() - c).abs().max()) for a, c in zip(grids[0],
+                                                                 cpu))
+    return (f"depth grid of a real frame ({int(mask.sum())} points, "
+            f"{int((grids[0].cnt > 0).sum())} cells filled) identical in two "
+            f"builds on the card; against the CPU's "
+            + ("identical" if same else f"max |diff| {diff:.3g}"))
+
+
+def vloam_cpu_phase(cfg, frames, images, calib, res_gpu, grid_line) -> None:
     from vloam_tpu_torch.vloam_step import VloamEngine, unpack_vloam_outputs
 
     t0 = time.perf_counter()
@@ -898,7 +1063,8 @@ def vloam_cpu_phase(cfg, frames, images, calib, res_gpu) -> None:
     diff = {w: float(np.abs(res[f"traj_{w}"][:, :, 3]
                             - res_gpu[f"traj_{w}"][:n, :, 3]).max())
             for w in VLOAM_CPU_TOL}
-    print(f"[9 combined card vs CPU] first {n} frames: max position diff "
+    print(f"[9 combined card vs CPU] {grid_line}; first {n} frames: max "
+          "position diff "
           + ", ".join(f"{w} {d:.2e} m (bound {VLOAM_CPU_TOL[w]:.0e})"
                       for w, d in diff.items())
           + f"; n32 {res['n32'].tolist()} vs {res_gpu['n32'][:n].tolist()} "
@@ -908,7 +1074,7 @@ def vloam_cpu_phase(cfg, frames, images, calib, res_gpu) -> None:
 
 
 _KERNELS = ("select_rings_kernel", "ring_min2_kernel", "ring_min1_kernel",
-            "row_gather_kernel", "zncc_describe_kernel")
+            "row_gather_kernel", "grid_probe_kernel", "zncc_describe_kernel")
 
 
 def _profile(push, first: int, n: int = PROFILE_FRAMES) -> dict:
@@ -1004,11 +1170,12 @@ def main() -> None:
     res_gpu, eng = e2e_phase(cfg, frames, poses)
     cpu_phase(cfg, frames, res_gpu)
     k3 = k3_phase(cfg_v, images)
-    res_v, launches_v = vloam_phase(cfg_v, frames, images, poses, calib)
-    vloam_cpu_phase(cfg_v, frames, images, calib, res_v)
+    res_v, launches_v, grid_line = vloam_phase(cfg_v, frames, images, poses,
+                                               calib)
+    vloam_cpu_phase(cfg_v, frames, images, calib, res_v, grid_line)
     outs_b, launches_b, beng = batch_phase(cfg, streams, stream_poses)
     batch_cpu_phase(cfg, streams, outs_b)
-    s2 = s2_phase(eng, frames[N_FRAMES - 1], beng, streams)
+    probe, s2 = s2_phase(eng, frames[N_FRAMES - 1], beng, streams)
     del eng, beng
     s1_argmin2 = ring_variants_phase(err_argmin2)
     profile_phase(cfg, cfg_v, frames, images, calib, streams)
@@ -1016,10 +1183,10 @@ def main() -> None:
     # with the counts set to 0 just before: the batch drive (phase 10), the
     # combined engine (phase 8) for K3, the ring-variants entry point (phase
     # 12) for ring_argmin2
-    for row in (k1, k2, s1_min1, s2):
+    for row in (k1, k2, s1_min1, probe, s2):
         row["launches"] = launches_b[row["name"]]
     k3["launches"] = launches_v["zncc_describe"]
-    kernels = [k1, k2, k3, s2, s1_min1, s1_argmin2]
+    kernels = [k1, k2, k3, probe, s2, s1_min1, s1_argmin2]
     if any(not row["launches"] > 0 for row in kernels):
         fail(f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,8 @@ CPU, where every kernel wrapper takes its plain PyTorch version.
   JAX counterparts on the same inputs, mirroring tests/test_batch_mapping.py:
   n_live exact; bucket rows within the insert's fixed-point step
   (res / 2^14 < 1e-4 m; the slot layout is identical, or the SENTINEL
-  padding would differ by 1e6); gathers exact on identical tables; poses
+  padding would differ by 1e6); gathers exact on identical tables (the
+  probe pair on kernel_cases.grid_probe_cases too); poses
   q 3e-4, t 5e-3 m (the adjugate plane fit's conditioning, as in
   tests/test_torch_loam_engine.py).
 - the LM's closed-form Jacobian with a stream axis against a float64
@@ -26,6 +27,7 @@ CPU, where every kernel wrapper takes its plain PyTorch version.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +42,7 @@ from vloam_tpu_torch.lidar import gridmap as tgm
 from vloam_tpu_torch.lidar import mapping as tmap
 from vloam_tpu_torch.lidar import ring_assoc as tra
 from vloam_tpu_torch.solver import lm as tlm
+from vloam_tpu_torch.tools import kernel_cases
 
 # One intra-op thread: pytest-xdist workers share the cores, and torch's
 # OpenMP pool stalls each small parallel CPU op when they are
@@ -96,7 +99,7 @@ def test_ring_min1_dispatch_has_no_fallback():
 def test_launch_counters_cover_all_six_kernels():
     assert set(kernels.LAUNCHES) == {
         "select_rings", "ring_min2", "zncc_describe", "row_gather",
-        "ring_min1", "ring_argmin2"}
+        "grid_probe", "ring_min1", "ring_argmin2"}
     kernels.reset_launches()
     assert not any(kernels.LAUNCHES.values())
 
@@ -255,7 +258,7 @@ def test_batch_gather_matches_jax():
     q = np.stack([_rand_stream(27, 64, 18.0), _rand_stream(28, 64, 18.0)])
     want = np.asarray(jbm.batch_grid_gather(gj, jnp.asarray(q),
                                             cfg.corner_cell, B))
-    got = tbm.batch_grid_gather(gt, _t(q), cfg.corner_cell, B)
+    got = tbm.batch_grid_gather_plain(gt, _t(q), cfg.corner_cell, B)
     assert got.shape == want.shape == (3, B * 64, 8 * cfg.corner_bucket_cap)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want < 1e5).any()
@@ -264,8 +267,57 @@ def test_batch_gather_matches_jax():
     for b in range(B):
         g = tgm.FeatureGrid(pts=gt.pts[b * nb:(b + 1) * nb],
                             n_live=gt.n_live[b])
-        ref = tgm.grid_gather(g, _t(q[b]), cfg.corner_cell)
+        ref = tgm.grid_gather_plain(g, _t(q[b]), cfg.corner_cell)
         assert torch.equal(got[:, b * 64:(b + 1) * 64], ref)
+    pair = tbm.batch_grid_gather_pair(gt, _t(q), cfg.corner_cell, gt,
+                                      _t(q), cfg.surf_cell, B)
+    assert torch.equal(pair[0], got)
+    assert torch.equal(pair[1], tbm.batch_grid_gather_plain(
+        gt, _t(q), cfg.surf_cell, B))
+
+
+@pytest.mark.parametrize("case", kernel_cases.grid_probe_cases(),
+                         ids=lambda c: c.name)
+def test_batch_grid_gather_pair_matches_jax(case):
+    """Both grids' probe over n_streams flat tables through
+    batch_grid_gather_pair (on the CPU: batch_grid_gather_plain) equal the
+    JAX batch_grid_gather's bit for bit, on every probe case: both signs,
+    cell midpoints and borders, an empty job, all-SENTINEL rows, and 3
+    streams whose last stream's rows the probe reaches. The reference runs
+    under jit, as batch_solve_mapping calls it: there q / cell becomes a
+    product with float32 1 / cell and the neighbour side a fused
+    multiply-add; called op by op it divides, and cell midpoints and
+    borders fall elsewhere."""
+    S, nb = case.n_streams, case.n_buckets
+    gather = jax.jit(jbm.batch_grid_gather, static_argnums=(2, 3))
+    args, wants = [], []
+    for table, q, cell in case.jobs:
+        qs = q.reshape(S, -1, 3)
+        gj = jbm.BatchFeatureGrid(pts=jnp.asarray(table),
+                                  n_live=jnp.zeros((S,), jnp.int32))
+        wants.append(np.asarray(gather(gj, jnp.asarray(qs), cell, S)))
+        args += [tbm.BatchFeatureGrid(pts=_t(table),
+                                      n_live=torch.zeros((S,),
+                                                         dtype=torch.int32)),
+                 _t(qs), cell]
+    got = tbm.batch_grid_gather_pair(*args, S)
+    for g, w, (table, q, cell) in zip(got, wants, case.jobs):
+        assert g.shape == w.shape == (3, len(q), 8 * table.shape[1] // 3)
+        np.testing.assert_array_equal(g.numpy(), w)
+    if S > 1:
+        for table, q, cell in case.jobs:
+            rows = (tgm.probe_buckets(_t(q.reshape(S, -1, 3)), cell, nb)
+                    + tbm._stream_offsets(S, nb, "cpu")[..., None])
+            assert int(rows.max()) // nb == S - 1
+            assert int(rows[-1].min()) >= (S - 1) * nb
+
+
+def test_batch_grid_gather_pair_dispatch_has_no_fallback():
+    g = tbm.BatchFeatureGrid(pts=torch.zeros((32, 48), device="meta"),
+                             n_live=torch.zeros((2,), dtype=torch.int32))
+    q = torch.zeros((2, 4, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor required"):
+        tbm.batch_grid_gather_pair(g, q, 2.0, g, q, 2.4, 2)
 
 
 def test_batch_evict_matches_jax():

@@ -41,11 +41,22 @@ needs JAX.)
   widths below, at and above a warp of 16-byte words, with repeated and
   boundary rows and a row count that is not a multiple of the block; widths
   that are not a multiple of 4 floats and int32 indices are refused.
+- S2 grid_probe: both grids' probe candidates in one launch bit-identical to
+  the plain pair (on the card and on the CPU) on every probe case of
+  kernel_cases.py (both signs, cell midpoints and borders, one job with no
+  query, all-SENTINEL rows, streams up to the last) at the single engine's
+  widths (2^17 buckets, caps 32 and 16) and at the batch engine's (4
+  streams), and at other caps (the kernel's generic path); what the kernel
+  does not take is refused.
 - S1 ring_min1 and ring_argmin2: every output identical to the plain
   versions and to K2's, on the shapes and the ties of the K2 test, on K2's
-  crafted cases and on the min-only slab shapes of kernel_cases.py (counts
+  crafted cases, on the min-only slab shapes of kernel_cases.py (counts
   that ring_min1's block shape divides unevenly, all-SENTINEL rings, equal
-  minima across chunk, group and tile boundaries).
+  minima across chunk, group and tile boundaries) and on ring_argmin2's
+  (the runner-up at the winner's distance, the winner in the last slot,
+  slot counts no tile divides, rings all SENTINEL).
+- The depth grid (vision/depth_map.py) built twice on the card: identical,
+  and identical to the CPU's (each cell adds its points in point order).
 - The batch engine on the card against the same engine on the CPU, the
   tolerances of the single engine's test.
 """
@@ -191,8 +202,8 @@ def test_ring_min1_and_argmin2_kernels_match_plain_and_k2(cuda, rng, Q, C):
 
 
 @pytest.mark.parametrize(
-    "case", kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases(),
-    ids=lambda c: c.name)
+    "case", kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases()
+    + kernel_cases.ring_argmin2_cases(), ids=lambda c: c.name)
 def test_ring_min1_and_argmin2_kernels_crafted_cases(cuda, case):
     q = torch.from_numpy(case.queries).to(cuda)
     slab_t = torch.from_numpy(case.slab_t).to(cuda)
@@ -240,6 +251,133 @@ def test_row_gather_refuses_what_the_kernel_does_not_take(cuda):
                               idx[:0]).shape == (0, 8)
 
 
+_PROBE_CASES = [c.name for c in kernel_cases.grid_probe_cases(n_buckets=16)]
+
+
+def _probe(case, dev):
+    """Both grids' candidates through the pair dispatcher on `dev`."""
+    from vloam_tpu_torch.lidar import batch_mapping as bm
+    from vloam_tpu_torch.lidar import gridmap
+
+    S = case.n_streams
+    args = []
+    for table, q, cell in case.jobs:
+        t = torch.from_numpy(table).to(dev)
+        q = torch.from_numpy(q).to(dev)
+        if S == 1:
+            args += [gridmap.FeatureGrid(t, torch.zeros((), device=dev)), q,
+                     cell]
+        else:
+            args += [bm.BatchFeatureGrid(t, torch.zeros((S,), device=dev)),
+                     q.reshape(S, -1, 3), cell]
+    if S == 1:
+        return gridmap.grid_gather_pair(*args)
+    return bm.batch_grid_gather_pair(*args, S)
+
+
+def _plain(case, dev):
+    from vloam_tpu_torch.lidar import batch_mapping as bm
+    from vloam_tpu_torch.lidar import gridmap
+
+    out = []
+    for table, q, cell in case.jobs:
+        t = torch.from_numpy(table).to(dev)
+        q = torch.from_numpy(q).to(dev)
+        if case.n_streams == 1:
+            out.append(gridmap.grid_gather_plain(
+                gridmap.FeatureGrid(t, None), q, cell))
+        else:
+            S = case.n_streams
+            out.append(bm.batch_grid_gather_plain(
+                bm.BatchFeatureGrid(t, None), q.reshape(S, -1, 3), cell, S))
+    return out
+
+
+@pytest.mark.parametrize("streams", [1, 4])
+@pytest.mark.parametrize("name", _PROBE_CASES)
+def test_grid_probe_kernel_matches_plain_pair(cuda, name, streams):
+    """At the single engine's widths (2^17 buckets a stream, caps 32 and
+    16, cells 2.0 and 2.4) and with the batch engine's 4 streams: the
+    kernel's candidates equal the plain pair's on the card and on the CPU,
+    bit for bit, in one launch for both grids."""
+    case = next(c for c in kernel_cases.grid_probe_cases(
+        n_buckets=1 << 17, n_streams=streams) if c.name == name)
+    n0 = kernels.LAUNCHES["grid_probe"]
+    got = _probe(case, cuda)
+    want = _plain(case, cuda)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["grid_probe"] == n0 + 1
+    cpu = _plain(case, "cpu")
+    for g, w, c, (table, q, _) in zip(got, want, cpu, case.jobs):
+        assert g.shape == (3, len(q), 8 * table.shape[1] // 3)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.parametrize("caps", [(8, 12), (4, 20)])
+def test_grid_probe_kernel_other_caps(cuda, caps):
+    """Caps other than 32 and 16 take the kernel's generic path."""
+    for case in kernel_cases.grid_probe_cases(caps=caps, n_streams=2):
+        got = _probe(case, cuda)
+        for g, w in zip(got, _plain(case, cuda)):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_grid_probe_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((8, 3), device=cuda)
+    good = (torch.zeros((64, 48), device=cuda), q, 0.5, 64, 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.grid_probe([(torch.zeros((64, 30), device=cuda), q, 0.5, 64,
+                             1)])
+    with pytest.raises(ValueError, match="power of two"):
+        kernels.grid_probe([(good[0], q, 0.5, 48, 1)])
+    with pytest.raises(ValueError, match="do not fit"):
+        kernels.grid_probe([(good[0], q, 0.5, 64, 3)])
+    with pytest.raises(ValueError, match="do not fit"):
+        kernels.grid_probe([(good[0], q, 0.5, 64, 2)])
+    with pytest.raises(ValueError, match="1 or 2 jobs"):
+        kernels.grid_probe([good] * 3)
+    n0 = kernels.LAUNCHES["grid_probe"]
+    outs = kernels.grid_probe([(good[0], q[:0], 0.5, 64, 1)] * 2)
+    assert [o.shape for o in outs] == [(3, 0, 128)] * 2
+    assert kernels.LAUNCHES["grid_probe"] == n0
+    # one job alone
+    from vloam_tpu_torch.lidar import gridmap
+
+    table = torch.randn((64, 48), device=cuda)
+    q = torch.randn((37, 3), device=cuda) * 3.0
+    got, = kernels.grid_probe([(table, q, 0.5, 64, 1)])
+    want = gridmap.grid_gather_plain(gridmap.FeatureGrid(table, None), q, 2.0)
+    assert kernels.LAUNCHES["grid_probe"] == n0 + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_depth_grid_is_reproducible_on_card(cuda):
+    """build_depth_grid twice on the card on one full-size frame (1242 x
+    375): identical, and identical to the CPU's (no atomics; each cell adds
+    its points in point order)."""
+    from vloam_tpu_torch.config import kitti_hdl64
+    from vloam_tpu_torch.data import synthetic
+    from vloam_tpu_torch.vision import depth_map
+
+    cfg = kitti_hdl64().vo
+    K, P_rect0, _, velo_T_cam = synthetic.default_cam_calib(
+        cfg.img_width, cfg.img_height)
+    P = torch.tensor(P_rect0 @ np.linalg.inv(velo_T_cam),
+                     dtype=torch.float32)
+    pts = torch.from_numpy(synthetic.simulate_scan(
+        synthetic.urban_scene(2), np.eye(4), n_scans=64, n_azimuth=1800))
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    mask[::7] = False
+    grids = [depth_map.build_depth_grid(pts.to(cuda), mask.to(cuda),
+                                        P.to(cuda), cfg) for _ in range(2)]
+    cpu = depth_map.build_depth_grid(pts, mask, P, cfg)
+    assert int(cpu.cnt.sum()) > 1000
+    for a, b, c in zip(*grids, cpu):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)
+
+
 def test_batch_engine_on_card_matches_cpu(cuda):
     from vloam_tpu_torch.config import tiny_test_profile
     from vloam_tpu_torch.lidar.loam_step import (BatchLoamEngine,
@@ -259,7 +397,8 @@ def test_batch_engine_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     gpu = run(cuda)
     n = 2 * len(scans)
-    assert kernels.LAUNCHES["row_gather"] == 4 * len(scans)
+    assert kernels.LAUNCHES["row_gather"] == 2 * len(scans)
+    assert kernels.LAUNCHES["grid_probe"] == len(scans)
     assert kernels.LAUNCHES["ring_min1"] == 2 * n
     assert kernels.LAUNCHES["ring_min2"] == 2 * n
     assert kernels.LAUNCHES["select_rings"] == n
@@ -303,9 +442,10 @@ def test_xyz_engine_on_card_matches_cpu(cuda):
     (cpu, n_cpu), (gpu, n_gpu) = res["cpu"], res["cuda"]
     assert not any(n_cpu.values())
     # per frame: K1 once, 2 association rounds (K2 surf, ring_min1 corner),
-    # 2 map probes and 2 inserts through row_gather
+    # both map probes in one grid_probe, 2 inserts through row_gather
     assert n_gpu == {"select_rings": 4, "ring_min2": 8, "ring_min1": 8,
-                     "row_gather": 16, "zncc_describe": 0, "ring_argmin2": 0}
+                     "row_gather": 8, "grid_probe": 4, "zncc_describe": 0,
+                     "ring_argmin2": 0}
     np.testing.assert_allclose(gpu["t_w_lo"], cpu["t_w_lo"], atol=2e-2)
     np.testing.assert_allclose(gpu["t_w_mo"], cpu["t_w_mo"], atol=3e-2)
 
@@ -380,8 +520,9 @@ def test_vloam_engine_on_card_ignores_tf32_settings(cuda):
     kernels.reset_launches()
     off, on = _tf32_on_and_off(run)
     assert kernels.LAUNCHES == {"select_rings": 8, "ring_min2": 16,
-                                "ring_min1": 16, "row_gather": 32,
-                                "zncc_describe": 8, "ring_argmin2": 0}
+                                "ring_min1": 16, "row_gather": 16,
+                                "grid_probe": 8, "zncc_describe": 8,
+                                "ring_argmin2": 0}
     assert np.isfinite(off).all() and (off[1:, 31] > 0).all()
     np.testing.assert_array_equal(on, off)
 

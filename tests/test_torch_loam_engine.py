@@ -275,6 +275,7 @@ def test_port_never_imports_jax():
             "vloam_tpu_torch.lidar.batch_mapping, "
             "vloam_tpu_torch.tools.timing, "
             "vloam_tpu_torch.tools.profile_row_gather, "
+            "vloam_tpu_torch.tools.profile_grid_probe, "
             "vloam_tpu_torch.tools.profile_ring_variants; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vloam_tpu')); assert not bad, bad")

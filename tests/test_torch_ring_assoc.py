@@ -17,6 +17,9 @@ ring_assoc) with the JAX reference.
   block shape divides unevenly, all-SENTINEL rings, equal minima across
   chunk, group and tile boundaries) against ring_min2_xla's first two
   outputs: slots identical, distances to 1e-6 relative.
+- ring_min2_plain, which ring_argmin2 equals, on ring_argmin2's crafted
+  cases against the argmin, mask, argmin formulation in numpy (bit for bit)
+  and ring_min2_xla (slots exact, distances to 1e-6 relative).
 - ring_slab_assoc against the reference's exact impl="xla": d0/p0/d2/p2
   equal to 1e-6. The surf pick p3 is K2's exact second minimum on ring0;
   the reference computes it on a quantized grid (~3e-5 m^2 steps), so p3
@@ -144,6 +147,60 @@ def test_ring_min1_plain_crafted_cases(case):
                  (700, 1030), (127, 128), (3, 4)]
         for s, (a, _) in enumerate(pairs):  # ties keep the lower slot
             assert amin[s, s] == a and dmin[s, s] == 0
+
+
+def _argmin_mask_argmin(q, slab_t):
+    """The measurement kernel _kern_argmin (scripts/profile_ring_variants.py)
+    restated in numpy: (dx^2 + dy^2) + dz^2 in float32, argmin, the winner's
+    slot set to 3.9e12, argmin again."""
+    diff = q[None, :, :, None] - slab_t[:, None, :, :]  # [S, Q, 3, C]
+    sq = diff * diff
+    d = (sq[:, :, 0] + sq[:, :, 1]) + sq[:, :, 2]
+    a1 = d.argmin(-1)
+    d_wo = d.copy()
+    np.put_along_axis(d_wo, a1[..., None], np.float32(3.9e12), -1)
+    a2 = d_wo.argmin(-1)
+    return (d.min(-1), a1.astype(np.int32), d_wo.min(-1),
+            a2.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", kernel_cases.ring_argmin2_cases(),
+                         ids=lambda c: c.name)
+def test_ring_argmin2_plain_crafted_cases(case):
+    """ring_argmin2's plain version (ring_min2_plain: ring_argmin2 computes
+    K2's four outputs) against the argmin, mask, argmin formulation in
+    numpy (bit for bit) and ring_min2_xla (slots exact, distances to 1e-6
+    relative) on ring_argmin2's crafted cases: a runner-up at the winner's
+    distance, the winner in the last slot, ragged slot counts, rings all
+    SENTINEL."""
+    q, slab_t = case.queries, case.slab_t
+    got = [g.numpy() for g in tra.ring_min2_plain(torch.from_numpy(q),
+                                                  torch.from_numpy(slab_t))]
+    for g, w in zip(got, _argmin_mask_argmin(q, slab_t)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    ref = jra.ring_min2_xla(jnp.asarray(q), jnp.asarray(slab_t))
+    for g, w in zip(got, ref):
+        w = np.asarray(w)
+        if w.dtype == np.int32:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-6)
+    dmin, amin, d2, a2 = got
+    C = slab_t.shape[2]
+    if case.name == "argmin2_ties":
+        ties = ((0, 1), (5, 300), (515, 2), (3, 4), (599, 511), (128, 129),
+                (250, 251), (10, 590))
+        for s, (a, b) in enumerate(ties):  # query s sits on both slots
+            assert (amin[s, s], a2[s, s]) == (min(a, b), max(a, b))
+            assert dmin[s, s] == d2[s, s] == 0
+    elif case.name.startswith("argmin2_last_slot"):
+        for s in range(8):
+            assert (amin[s, s], a2[s, s]) == (C - 1, s)
+    elif case.name == "argmin2_all_sentinel":
+        for s in (0, 1, 2, 4, 5, 6, 7):
+            assert (amin[s] == 0).all() and (a2[s] == 1).all()
+        assert (amin[3] == 77).all() and (a2[3] == 0).all()
 
 
 def test_ring_min2_dispatch_has_no_fallback():

@@ -26,8 +26,11 @@ scene from fixed seeds and uint8-quantized as the engines do.
   also on the crafted K3 cases of vloam_tpu_torch/tools/kernel_cases.py.
 - match_descriptors on JAX's descriptors: idx and valid identical, knn and
   nn.
-- build_depth_grid: cnt exact, u / v / z to 1e-5 (relative); query_depth to
-  1e-5 with the -1 pattern exact.
+- build_depth_grid: cnt, u, v and z exact (each cell's points add in
+  point order, as XLA's CPU scatter adds them; bucket coordinates scale by
+  float32 1 / g, as XLA computes the reference's / g); its per-cell sum
+  equals a sequential numpy sum in point order bit for bit on values whose
+  sum depends on the order; query_depth to 1e-5 with the -1 pattern exact.
 - the closed-form VO Jacobian against float64 torch.func.jacfwd, to 2e-5 of
   its scale; solve_vo on the same matches and grid to 1e-4 (the reference
   factors the LM step by Cholesky, the port by LU; the sums add in another
@@ -285,8 +288,7 @@ def test_depth_grid_and_query_match_jax(frames, jax_vision):
     np.testing.assert_array_equal(gt.cnt.numpy(), np.asarray(gj.cnt))
     assert int(gt.cnt.sum()) > 1000
     for a, b in zip(gt[:3], gj[:3]):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
-                                   atol=1e-5)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
     xy = np.trunc(kps[0][0])
     xy = np.concatenate([xy, [[0.0, 0.0], [W - 1.0, H - 1.0]]]).astype(
@@ -298,6 +300,33 @@ def test_depth_grid_and_query_match_jax(frames, jax_vision):
         assert (zj > 0).sum() >= 10 and (zj == -1).sum() > 2
         np.testing.assert_array_equal(zt == -1, zj == -1)
         np.testing.assert_allclose(zt, zj, rtol=1e-5, atol=1e-5)
+
+
+def test_depth_grid_cell_sums_add_in_point_order(rng):
+    """The depth grid's per-cell sums equal a sequential float32 sum of
+    each cell's values in point order, bit for bit, on values whose sum
+    depends on the order (magnitudes 1e-3 to 1e7 of both signs in the same
+    cells; the sum in reverse order differs). Empty cells sum to 0, and so
+    does the last cell, the dump, which takes the most points here."""
+    n, n_cells = 4000, 60
+    cell = rng.integers(0, n_cells - 4, n)  # cells 56-58 stay empty
+    cell[::3] = n_cells - 1
+    vals = (rng.normal(size=(n, 4))
+            * 10.0 ** rng.integers(-3, 8, (n, 4))).astype(np.float32)
+    got = tdm.cell_sums(_t(cell), _t(vals), n_cells).numpy()
+
+    def sequential(idx):
+        acc = np.zeros((n_cells, 4), np.float32)
+        for i in idx:
+            acc[cell[i]] = acc[cell[i]] + vals[i]
+        return acc
+
+    want = sequential(range(n))
+    assert got.dtype == np.float32 and got.shape == (n_cells, 4)
+    np.testing.assert_array_equal(got[:-1], want[:-1])
+    assert (got[-4:] == 0).all()
+    assert not np.array_equal(sequential(range(n - 1, -1, -1))[:-1],
+                              want[:-1])
 
 
 def _vo_inputs(rng, n=300):

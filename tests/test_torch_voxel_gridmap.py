@@ -17,6 +17,7 @@ from vloam_tpu.lidar import gridmap as jg
 from vloam_tpu.lidar import voxel as jv
 from vloam_tpu_torch.lidar import gridmap as tg
 from vloam_tpu_torch.lidar import voxel as tv
+from vloam_tpu_torch.tools import kernel_cases
 
 # One intra-op thread: pytest-xdist workers share the cores, and torch's
 # OpenMP pool stalls each small parallel CPU op when they are
@@ -167,8 +168,10 @@ def test_grid_gather_and_knn_match_jax(rng):
     q = (p[rng.integers(0, 3000, 256)]
          + rng.normal(0, 0.3, (256, 3))).astype(np.float32)
     cj = jg.grid_gather(gj, jnp.asarray(q), 2.0)
-    ct = tg.grid_gather(gt, _t(q), 2.0)
+    ct = tg.grid_gather_plain(gt, _t(q), 2.0)
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    for got in tg.grid_gather_pair(gt, _t(q), 2.0, gt, _t(q), 2.0):
+        assert torch.equal(got, ct)
     dj, nj = jg.knn_among_planar(cj, jnp.asarray(q), k=5)
     dt, nt = tg.knn_among_planar(ct, _t(q), k=5)
     dj, nj = np.asarray(dj), np.asarray(nj)
@@ -177,3 +180,60 @@ def test_grid_gather_and_knn_match_jax(rng):
     # exactly equal sentinel distances may differ)
     gate = dj < 1.0
     np.testing.assert_array_equal(nt.numpy()[:, gate], nj[:, gate])
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in kernel_cases.grid_probe_cases() if c.n_streams == 1],
+    ids=lambda c: c.name)
+def test_grid_gather_pair_matches_jax(case):
+    """Both grids' probe candidates through grid_gather_pair (on the CPU:
+    grid_gather_plain) equal the JAX grid_gather's bit for bit, at the
+    engines' bucket capacities and cells: both signs, queries at cell
+    midpoints and on borders, an empty job, all-SENTINEL rows."""
+    grids, args = [], []
+    for table, q, cell in case.jobs:
+        gj = jg.FeatureGrid(pts=jnp.asarray(table),
+                            n_live=jnp.zeros((), jnp.int32))
+        want = np.asarray(jg.grid_gather(gj, jnp.asarray(q), cell))
+        grids.append(want)
+        args += [tg.FeatureGrid(pts=_t(table),
+                                n_live=torch.zeros((), dtype=torch.int32)),
+                 _t(q), cell]
+    got = tg.grid_gather_pair(*args)
+    for g, w, (table, q, _) in zip(got, grids, case.jobs):
+        assert g.shape == w.shape == (3, len(q), 8 * table.shape[1] // 3)
+        np.testing.assert_array_equal(g.numpy(), w)
+    if case.name == "sentinel_rows":
+        assert (grids[0] == tg.SENTINEL).mean() > 0.8
+
+
+def test_probe_buckets_follow_the_reference_cell(rng):
+    """A query's cell is floor(q * float32(1 / cell)), as XLA computes the
+    reference's q / cell: on queries where that differs from an IEEE
+    division, the buckets follow the product."""
+    cell = 2.4
+    q = rng.uniform(-300, 300, (200000, 3)).astype(np.float32)
+    inv = np.float32(1) / np.float32(cell)
+    by_mul = np.floor(q * inv)
+    by_div = np.floor(q / np.float32(cell))
+    differ = (by_mul != by_div).any(1)
+    assert differ.sum() > 0
+    q = q[differ]
+    want = np.asarray(jax.jit(jg._bucket_of, static_argnums=(1, 2))(
+        jnp.asarray(q), cell, 1 << 17))
+    got = tg._bucket_of(_t(q), cell, 1 << 17)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    c = by_mul[differ].astype(np.int32)
+    np.testing.assert_array_equal(
+        got.numpy(), tg._hash_cell(*(_t(c[:, i]) for i in range(3)),
+                                   1 << 17).numpy())
+
+
+def test_grid_gather_pair_dispatch_has_no_fallback():
+    """Only CPU tensors take the plain version; anything else goes to the
+    kernel wrapper, which refuses non-CUDA tensors."""
+    g = tg.FeatureGrid(pts=torch.zeros((16, 48), device="meta"),
+                       n_live=torch.zeros((), dtype=torch.int32))
+    q = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor required"):
+        tg.grid_gather_pair(g, q, 2.0, g, q, 2.4)

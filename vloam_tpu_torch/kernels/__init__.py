@@ -10,8 +10,12 @@ S1 ring_min1, ring_argmin2 (csrc/ring_min1.cu) <- scripts/
                  profile_ring_variants.py::_kern_min1, _kern_argmin (the
                  min-only reduction under corner association; K2's outputs
                  by two argmin passes)
-S2 row_gather    (csrc/row_gather.cu)   <- scripts/profile_pallas_gather.py::
-                 make_pallas_gather[_tiled] (the map's bucket-row gather)
+S2 grid_probe    (csrc/grid_probe.cu)   <- scripts/profile_pallas_gather.py::
+                 make_pallas_gather[_tiled] under the map's 8-cell probe:
+                 hashes, row gather and planar layout of both grids of a
+                 frame in one launch
+   row_gather    (csrc/row_gather.cu)   <- the same, the bucket-row gather
+                 under the map's inserts
 
 The wrappers here accept CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate outputs with torch.empty, launch on PyTorch's
@@ -31,7 +35,8 @@ import torch
 from . import build
 
 LAUNCHES = {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0,
-            "row_gather": 0, "ring_min1": 0, "ring_argmin2": 0}
+            "row_gather": 0, "grid_probe": 0, "ring_min1": 0,
+            "ring_argmin2": 0}
 
 
 def reset_launches() -> None:
@@ -138,6 +143,64 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(lib, err, "row_gather")
     LAUNCHES["row_gather"] += 1
     return out
+
+
+def grid_probe(jobs) -> list[torch.Tensor]:
+    """S2's map probe on the card: up to two jobs (the corner and the surf
+    grid of a frame) in one launch. A job is (table [NB, 3*cap] f32,
+    queries [Q, 3] f32, inv_cell, n_buckets, n_streams): the queries are
+    n_streams equal runs, stream s's over its table rows [s*n_buckets,
+    (s+1)*n_buckets); inv_cell is voxel.reciprocal_f32(cell). Returns per
+    job the planar candidates [3, Q, 8*cap] f32: out[a, i, k*cap + j] =
+    table[row_k(i), a*cap + j], row_k the k-th of the query's 8 probed
+    cells (gridmap.probe_buckets) plus its stream's offset, bit-identical
+    to gridmap.grid_gather_plain / batch_mapping.batch_grid_gather_plain.
+    cap must be a multiple of 4 (16-byte words), n_buckets a power of two."""
+    if not 1 <= len(jobs) <= 2:
+        raise ValueError(f"grid_probe: 1 or 2 jobs, got {len(jobs)}")
+    args, outs = [], []
+    for table, queries, inv_cell, n_buckets, n_streams in jobs:
+        _require(table, "table", torch.float32, 2)
+        _require(queries, "queries", torch.float32, 2)
+        NB, W = table.shape
+        Q = queries.shape[0]
+        cap = W // 3
+        if queries.shape[1] != 3 or W != 3 * cap or cap % 4 or cap == 0:
+            raise ValueError(f"grid_probe: bad shapes {table.shape} "
+                             f"{queries.shape} (rows of 3*cap floats, cap a "
+                             "positive multiple of 4)")
+        if table.data_ptr() % 16:
+            raise ValueError("grid_probe: table is not 16-byte aligned")
+        if n_buckets < 1 or n_buckets & (n_buckets - 1):
+            raise ValueError(f"grid_probe: n_buckets {n_buckets} is not a "
+                             "power of two")
+        if n_streams < 1 or Q % n_streams or n_streams * n_buckets > NB:
+            raise ValueError(f"grid_probe: {Q} queries in {n_streams} "
+                             f"streams of {n_buckets} buckets do not fit a "
+                             f"table of {NB} rows")
+        if NB >= 2**31 or Q >= 2**31:
+            raise ValueError("grid_probe: too large for the kernel's "
+                             "32-bit row and query ids")
+        if table.device != queries.device or (
+                outs and table.device != outs[0].device):
+            raise ValueError("grid_probe: inputs on different devices")
+        out = torch.empty((3, Q, 8 * cap), dtype=torch.float32,
+                          device=table.device)
+        outs.append(out)
+        args += [table.data_ptr(), queries.data_ptr(), out.data_ptr(), Q,
+                 cap, n_buckets, Q // n_streams, float(inv_cell)]
+    if not any(o.shape[1] for o in outs):
+        return outs
+    if len(jobs) == 1:
+        args += [None, None, None, 0, 4, 1, 1, 1.0]
+    lib = build.load()
+    dev = outs[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vloam_grid_probe(*args, stream)
+    _check(lib, err, "grid_probe")
+    LAUNCHES["grid_probe"] += 1
+    return outs
 
 
 def select_rings(curv: torch.Tensor, bf: torch.Tensor, counts: torch.Tensor,

@@ -187,6 +187,8 @@ def load() -> ctypes.CDLL:
     lib.vloam_ring_argmin2.restype = i
     lib.vloam_row_gather.argtypes = [p, p, p, i, i, p]
     lib.vloam_row_gather.restype = i
+    lib.vloam_grid_probe.argtypes = [p, p, p, i, i, i, i, f] * 2 + [p]
+    lib.vloam_grid_probe.restype = i
     lib.vloam_select_rings.argtypes = [p, p, p, p, i, i, f, i, i, i, i, p]
     lib.vloam_select_rings.restype = i
     lib.vloam_zncc_describe.argtypes = [p, p, p, i, i, i, i, p]

@@ -54,11 +54,29 @@
 //   finite (slabs pad with the finite SENTINEL): a ragged last chunk pads
 //   with +inf coordinates, whose distance +inf never wins.
 //
-// ring_argmin2 keeps the first shape: one block per (ring, 128-query tile),
-// the [3, C] slab in shared memory read three floats a slot, one query a
-// thread, two passes over the ring (the second recomputes the distances with
-// the winner's slot masked rather than storing them). Its outputs equal K2's
-// four, bit for bit; ring_min1's equal K2's first two.
+// ring_argmin2 is built on ring_min1's loop and block shape, with the whole
+// ring staged once (float4 slots in dynamic shared memory, padded with
+// +inf) in segments of `seg` chunks. Pass 1 is ring_min1's loop over
+// segments: each segment's minimum per query is stored in shared memory and
+// the best segment by (minimum, segment id) tracked, merged across groups.
+// Pass 2 walks the stored minima with the winner's segment skipped: the
+// best other segment. It reads what pass 1 computed, the same bits, instead
+// of computing the distances again: a second pass over the distances (the
+// first build) cost as much as the first, twice ring_min1's time (PERF.md).
+// The resolve then walks the winner's segment twice (its first minimum:
+// amin, dmin; then its minimum with amin's slot masked to kBig, as the plain
+// version masks it) and, where the other segment beats that masked minimum
+// by (minimum, segment id), that segment once. This is the plain version's
+// argmin, mask, argmin: ties keep the lowest slot, duplicates give d2 ==
+// dmin, an all-SENTINEL ring gives slots 0 and 1. A segment is one chunk
+// while a ring's minima fit kStore bytes (C <= 256 at 32 KB), and longer
+// above that (2 chunks at C = 512), so shared memory stays bounded at the
+// cost of longer resolves; tools/profile_ring_variants.py --shapes times
+// other budgets (at the surf shape 2048 x [64,3,512] on an H100 at 700 W,
+// one run: 8 KB 48.2 us, 16 KB 39.2, 32 KB 38.4, 64 KB 59.2; longer
+// resolves against fewer blocks an SM).
+// Its outputs equal K2's four, bit for bit; ring_min1's equal K2's first
+// two.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -82,11 +100,13 @@
 #ifndef VLOAM_S1_PART
 #define VLOAM_S1_PART 0
 #endif
+// ring_argmin2's shared memory for pass 1's segment minima, bytes a block
+#ifndef VLOAM_A2_STORE
+#define VLOAM_A2_STORE 32768
+#endif
 
 namespace {
 
-// ring_argmin2's block: one query a thread
-constexpr int kThreads = 128;
 constexpr float kBig = 3.9e12f;  // > any sentinel distance (~3e12)
 
 // ring_min1's block shape (see the notes above)
@@ -97,6 +117,7 @@ constexpr int kQpt = VLOAM_S1_QPT;      // queries a thread
 constexpr int kChunk = VLOAM_S1_CHUNK;  // slots a chunk
 constexpr int kTile = 512;              // slots staged at a time
 constexpr int kPart = VLOAM_S1_PART;
+constexpr int kStore = VLOAM_A2_STORE;
 static_assert(kTile % kChunk == 0, "a tile is whole chunks");
 
 __device__ __forceinline__ float dist_sq(float qx, float qy, float qz,
@@ -106,15 +127,6 @@ __device__ __forceinline__ float dist_sq(float qx, float qy, float qz,
   const float dz = __fsub_rn(qz, cz);
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
-}
-
-// Stage ring blockIdx.x's [3, C] slab in shared memory.
-__device__ __forceinline__ void stage_ring(float* ring,
-                                           const float* __restrict__ slab_t,
-                                           int C) {
-  const float* src = slab_t + static_cast<size_t>(blockIdx.x) * 3 * C;
-  for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) ring[i] = src[i];
-  __syncthreads();
 }
 
 // (a, ia) before (b, ib): the smaller minimum, the earlier chunk on ties
@@ -232,43 +244,141 @@ ring_min1_kernel(const float* __restrict__ queries,  // [Q, 3]
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-ring_argmin2_kernel(const float* __restrict__ queries,
-                    const float* __restrict__ slab_t,
+// The groups' best segment for query slot j of this thread: the smallest
+// minimum, the earliest segment on ties.
+__device__ __forceinline__ void merge_groups(float (*s_m)[kQpt][kGroup],
+                                             int (*s_c)[kQpt][kGroup], int j,
+                                             int tid, float& bm, int& bc) {
+  bm = s_m[0][j][tid];
+  bc = s_c[0][j][tid];
+#pragma unroll
+  for (int g = 1; g < kSplit; ++g) {
+    const float m = s_m[g][j][tid];
+    const int c = s_c[g][j][tid];
+    if (before(m, c, bm, bc)) {
+      bm = m;
+      bc = c;
+    }
+  }
+}
+
+// The strict running minimum over segment `sg`'s L slots in slot order,
+// slot `masked` counted as kBig: (minimum, its first slot).
+__device__ __forceinline__ void resolve(const float4* tile, int sg, int L,
+                                        int C, float x, float y, float z,
+                                        int masked, float& best, int& slot) {
+  best = CUDART_INF_F;
+  slot = sg * L;
+  const int end = min(C, (sg + 1) * L);  // a ragged last segment
+  for (int c = sg * L; c < end; ++c) {
+    const float4 p = tile[c];
+    const float d = c == masked ? kBig : dist_sq(x, y, z, p.x, p.y, p.z);
+    if (d < best) {
+      best = d;
+      slot = c;
+    }
+  }
+}
+
+// tile: the ring as float4 slots, n_segs segments of seg * kChunk slots
+// (+inf past C); seg_min: pass 1's minimum per (segment, query),
+// [n_segs][kQpt][kGroup].
+__global__ void __launch_bounds__(kMin1Threads)
+ring_argmin2_kernel(const float* __restrict__ queries,  // [Q, 3]
+                    const float* __restrict__ slab_t,   // [S, 3, C]
                     float* __restrict__ dmin, int* __restrict__ amin,
-                    float* __restrict__ d2, int* __restrict__ a2,
-                    int Q, int C) {
-  extern __shared__ float ring[];
-  stage_ring(ring, slab_t, C);
-  const int q = blockIdx.y * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
-  const float qx = queries[3 * q], qy = queries[3 * q + 1],
-              qz = queries[3 * q + 2];
-  float m1 = CUDART_INF_F;
-  int i1 = 0;
-  for (int c = 0; c < C; ++c) {
-    const float d = dist_sq(qx, qy, qz, ring[c], ring[C + c], ring[2 * C + c]);
-    if (d < m1) {
-      m1 = d;
-      i1 = c;
+                    float* __restrict__ d2, int* __restrict__ a2, int Q,
+                    int C, int seg, int n_segs) {
+  extern __shared__ float4 smem[];
+  const int L = seg * kChunk;  // slots a segment
+  float4* tile = smem;
+  float* seg_min = reinterpret_cast<float*>(smem + n_segs * L);
+  __shared__ float s_m[kSplit][kQpt][kGroup];
+  __shared__ int s_c[kSplit][kQpt][kGroup];
+  const int s = blockIdx.x;
+  const int grp = threadIdx.x / kGroup;
+  const int tid = threadIdx.x % kGroup;
+  const float* ring = slab_t + static_cast<size_t>(s) * 3 * C;
+  const int q0 = blockIdx.y * (kGroup * kQpt) + tid;
+
+  for (int i = threadIdx.x; i < n_segs * L; i += kMin1Threads)
+    tile[i] = i < C ? make_float4(ring[i], ring[C + i], ring[2 * C + i], 0.f)
+                    : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                                  0.f);
+  float qx[kQpt], qy[kQpt], qz[kQpt], m1[kQpt];
+  int c1[kQpt];
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    // queries past Q repeat the last one and are not stored
+    const int q = min(q0 + j * kGroup, Q - 1);
+    qx[j] = queries[3 * q];
+    qy[j] = queries[3 * q + 1];
+    qz[j] = queries[3 * q + 2];
+    m1[j] = CUDART_INF_F;
+    c1[j] = 0;
+  }
+  __syncthreads();
+
+  // pass 1 over the staged ring, group g over the g-th share of its
+  // segments: every segment's minimum stored, the best segment tracked
+  const int per = (n_segs + kSplit - 1) / kSplit;
+  const int sg_end = min(n_segs, (grp + 1) * per);
+  for (int sg = grp * per; sg < sg_end; ++sg) {
+    float lo[kQpt];
+#pragma unroll
+    for (int j = 0; j < kQpt; ++j) lo[j] = CUDART_INF_F;
+    for (int ch = sg * seg; ch < (sg + 1) * seg; ++ch) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        // one broadcast load for kQpt queries
+        const float4 p = tile[ch * kChunk + k];
+#pragma unroll
+        for (int j = 0; j < kQpt; ++j)
+          lo[j] = fminf(lo[j], dist_sq(qx[j], qy[j], qz[j], p.x, p.y, p.z));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kQpt; ++j) {
+      seg_min[(sg * kQpt + j) * kGroup + tid] = lo[j];
+      c1[j] = lo[j] < m1[j] ? sg : c1[j];
+      m1[j] = fminf(m1[j], lo[j]);
     }
   }
-  // second pass: the same distances with the winner's slot masked
-  float m2 = CUDART_INF_F;
-  int i2 = 0;
-  for (int c = 0; c < C; ++c) {
-    float d = dist_sq(qx, qy, qz, ring[c], ring[C + c], ring[2 * C + c]);
-    if (c == i1) d = kBig;
-    if (d < m2) {
-      m2 = d;
-      i2 = c;
-    }
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    s_m[grp][j][tid] = m1[j];
+    s_c[grp][j][tid] = c1[j];
   }
-  const size_t o = static_cast<size_t>(blockIdx.x) * Q + q;
-  dmin[o] = m1;
-  amin[o] = i1;
-  d2[o] = m2;
-  a2[o] = i2;
+  __syncthreads();
+
+  // query j is finished by group j % kSplit: the winner's segment w, pass 2
+  // over pass 1's stored minima with w skipped, then the resolves
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    const int q = q0 + j * kGroup;
+    if (j % kSplit != grp || q >= Q) continue;
+    float bm;
+    int w, bc = 0;
+    merge_groups(s_m, s_c, j, tid, bm, w);
+    bm = CUDART_INF_F;
+    for (int sg = 0; sg < n_segs; ++sg) {
+      const float l =
+          sg == w ? CUDART_INF_F : seg_min[(sg * kQpt + j) * kGroup + tid];
+      bc = l < bm ? sg : bc;
+      bm = fminf(bm, l);
+    }
+    float r1, r2;
+    int i1, i2;
+    resolve(tile, w, L, C, qx[j], qy[j], qz[j], -1, r1, i1);
+    resolve(tile, w, L, C, qx[j], qy[j], qz[j], i1, r2, i2);
+    if (before(bm, bc, r2, w))
+      resolve(tile, bc, L, C, qx[j], qy[j], qz[j], -1, r2, i2);
+    const size_t o = static_cast<size_t>(s) * Q + q;
+    dmin[o] = r1;
+    amin[o] = i1;
+    d2[o] = r2;
+    a2[o] = i2;
+  }
 }
 
 template <typename Kernel>
@@ -295,12 +405,19 @@ extern "C" int vloam_ring_min1(const float* queries, const float* slab_t,
 extern "C" int vloam_ring_argmin2(const float* queries, const float* slab_t,
                                   float* dmin, int* amin, float* d2, int* a2,
                                   int Q, int S, int C, void* stream) {
-  const size_t smem = static_cast<size_t>(3) * C * sizeof(float);
+  // segments of seg chunks, so that pass 1's minima fit kStore bytes
+  const int per_seg = kQpt * kGroup * static_cast<int>(sizeof(float));
+  const int n_chunks = (C + kChunk - 1) / kChunk;
+  const int seg = max(1, (n_chunks * per_seg + kStore - 1) / kStore);
+  const int n_segs = (n_chunks + seg - 1) / seg;
+  const size_t smem = static_cast<size_t>(n_segs) *
+                      (seg * kChunk * sizeof(float4) + per_seg);
   const cudaError_t e = allow_smem(ring_argmin2_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(S, (Q + kThreads - 1) / kThreads);
-  ring_argmin2_kernel<<<grid, kThreads, smem,
+  const int per_block = kGroup * kQpt;
+  const dim3 grid(S, (Q + per_block - 1) / per_block);
+  ring_argmin2_kernel<<<grid, kMin1Threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      queries, slab_t, dmin, amin, d2, a2, Q, C);
+      queries, slab_t, dmin, amin, d2, a2, Q, C, seg, n_segs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,10 +5,10 @@ The stream axis is folded into the hash-bucket axis: B per-stream tables
 become ONE [B*nb, 3*cap] table, a point's row is ``stream*nb + hash(cell)``,
 and every gather, sort and scatter of the mapping stage is a single flat op
 over all streams, so its fixed costs (on this port: its kernel launches) are
-paid once per lockstep frame instead of once per stream. The candidate
-gather and the insert's row fetch are ``gridmap.row_gather`` (on CUDA the
-hand-written kernel kernels/csrc/row_gather.cu), each over all streams' rows
-in one launch.
+paid once per lockstep frame instead of once per stream. On CUDA both grids'
+candidate probes are one launch of kernels/csrc/grid_probe.cu over all
+streams (``batch_grid_gather_pair``), and each insert's row fetch is one
+``gridmap.row_gather`` (kernels/csrc/row_gather.cu).
 
 Insert is a segment-merged ROW scatter: points are sorted by flat bucket,
 each bucket-segment's points are merged into one updated row image with
@@ -35,11 +35,13 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..geometry import so3
 from ..solver.lm import lm_solve
-from .gridmap import SENTINEL, _bucket_of, _hash_cell, row_gather
+from .gridmap import SENTINEL, _bucket_of, probe_buckets, row_gather
 from .mapping import (_cube_coord, _retract, corner_fit, mo_families,
                       surf_fit, window_half_extent)
+from .voxel import reciprocal_f32
 
 
 class BatchFeatureGrid(NamedTuple):
@@ -91,27 +93,33 @@ def _flat_buckets(p: torch.Tensor, cell: float, nb: int) -> torch.Tensor:
     return (b + _stream_offsets(p.shape[0], nb, p.device)).reshape(-1)
 
 
-def batch_grid_gather(g: BatchFeatureGrid, queries: torch.Tensor, cell: float,
-                      batch: int) -> torch.Tensor:
+def batch_grid_gather_plain(g: BatchFeatureGrid, queries: torch.Tensor,
+                            cell: float, batch: int) -> torch.Tensor:
     """8-cell probe candidates for per-stream queries [B, Q, 3] as ONE flat
-    row gather: planar [3, B*Q, 8*cap] (cf. gridmap.grid_gather)."""
+    row gather: planar [3, B*Q, 8*cap] (cf. gridmap.grid_gather_plain)."""
     nb, cap = g.n_buckets(batch), g.cap
     B, Q = queries.shape[:2]
-    s = queries / cell
-    c = torch.floor(s).to(torch.int32)
-    off = torch.where(s - c < 0.5, -1, 1).to(torch.int32)  # [B, Q, 3]
     soff = _stream_offsets(B, nb, queries.device)
-    hs = []
-    for sx in (0, 1):
-        for sy in (0, 1):
-            for sz in (0, 1):
-                hs.append(_hash_cell(c[..., 0] + sx * off[..., 0],
-                                     c[..., 1] + sy * off[..., 1],
-                                     c[..., 2] + sz * off[..., 2], nb) + soff)
-    buckets = torch.stack(hs, dim=-1)  # [B, Q, 8]
+    buckets = probe_buckets(queries, cell, nb) + soff[..., None]  # [B, Q, 8]
     rows = row_gather(g.pts, buckets.reshape(-1))  # [8*B*Q, 3*cap]
     planar = rows.reshape(B * Q, 8, 3, cap)
     return planar.permute(2, 0, 1, 3).reshape(3, B * Q, 8 * cap)
+
+
+def batch_grid_gather_pair(g_c: BatchFeatureGrid, q_c: torch.Tensor,
+                           cell_c: float, g_s: BatchFeatureGrid,
+                           q_s: torch.Tensor, cell_s: float, batch: int):
+    """Both grids' probe candidates, each as batch_grid_gather_plain gives
+    it. CPU tensors take batch_grid_gather_plain; CUDA tensors launch
+    kernels/csrc/grid_probe.cu once for both grids and all streams (or
+    raise — there is no fallback)."""
+    if all(t.device.type == "cpu" for t in (g_c.pts, q_c, g_s.pts, q_s)):
+        return (batch_grid_gather_plain(g_c, q_c, cell_c, batch),
+                batch_grid_gather_plain(g_s, q_s, cell_s, batch))
+    return tuple(kernels.grid_probe([
+        (g.pts, q.reshape(-1, 3).contiguous(), reciprocal_f32(cell),
+         g.n_buckets(batch), batch)
+        for g, q, cell in ((g_c, q_c, cell_c), (g_s, q_s, cell_s))]))
 
 
 def _segment_first(flag: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
@@ -284,10 +292,9 @@ def batch_solve_mapping(gm: BatchGridMap, corner_stack_xyz, corner_stack_mask,
 
     # one flat candidate gather at the prediction pose, reused by both
     # rounds (the same argument as in mapping.solve_mapping)
-    cand_c = batch_grid_gather(gm.corner, _world(x0, corner_stack_xyz),
-                               cfg.corner_cell, B)
-    cand_s = batch_grid_gather(gm.surf, _world(x0, surf_stack_xyz),
-                               cfg.surf_cell, B)
+    cand_c, cand_s = batch_grid_gather_pair(
+        gm.corner, _world(x0, corner_stack_xyz), cfg.corner_cell,
+        gm.surf, _world(x0, surf_stack_xyz), cfg.surf_cell, B)
 
     Qc = corner_stack_xyz.shape[1]
     Qs = surf_stack_xyz.shape[1]

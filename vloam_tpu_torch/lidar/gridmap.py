@@ -16,8 +16,16 @@ incrementally — nothing is rebuilt per frame.
 Functions return new FeatureGrid values and leave their inputs untouched,
 as the JAX reference's do.
 
-Both the probe and the insert fetch whole bucket rows by id: ``row_gather``,
-on CUDA the hand-written kernel kernels/csrc/row_gather.cu.
+A query's cell is ``floor(q * reciprocal_f32(cell))``: the reference's
+``q / cell`` as XLA computes it (voxel.reciprocal_f32); the probe's
+neighbour side rounds as XLA's fused multiply-add (probe_buckets).
+
+On CUDA the two probes of a frame (corner and surf grid) are ONE launch of
+the hand-written kernel kernels/csrc/grid_probe.cu (``grid_gather_pair``),
+which hashes the 8 cells itself and writes the planar candidates; CPU
+tensors take ``grid_gather_plain``, the composition of hashes, a row gather
+and a permute. The insert fetches whole bucket rows by id with
+``row_gather``, on CUDA kernels/csrc/row_gather.cu.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
-from .voxel import as_u32, hash_avalanche, _mul32
+from .voxel import as_u32, hash_avalanche, reciprocal_f32, _mul32
 
 SENTINEL = 1.0e6
 
@@ -75,8 +83,13 @@ def grid_create(n_buckets: int, cap: int, device) -> FeatureGrid:
     )
 
 
+def _cell_of(p: torch.Tensor, cell: float) -> torch.Tensor:
+    """int32 floor of p / cell, rounded as the reference rounds it."""
+    return torch.floor(p * reciprocal_f32(cell)).to(torch.int32)
+
+
 def _bucket_of(p: torch.Tensor, cell: float, n_buckets: int) -> torch.Tensor:
-    c = torch.floor(p / cell).to(torch.int32)
+    c = _cell_of(p, cell)
     return _hash_cell(c[..., 0], c[..., 1], c[..., 2], n_buckets)
 
 
@@ -133,24 +146,53 @@ def grid_evict(g: FeatureGrid, center: torch.Tensor,
     return FeatureGrid(pts=pts, n_live=torch.sum(keep, dtype=torch.int32))
 
 
-def grid_gather(g: FeatureGrid, queries: torch.Tensor, cell: float):
-    """Gather each query's 8-cell probe candidates: [3, Q, 8*cap] planar."""
-    nb, cap = g.pts.shape[0], g.cap
-    q = queries.shape[0]
-    s = queries / cell
-    c = torch.floor(s).to(torch.int32)
-    off = torch.where(s - c < 0.5, -1, 1).to(torch.int32)  # [Q, 3]
+def probe_buckets(queries: torch.Tensor, cell: float,
+                  n_buckets: int) -> torch.Tensor:
+    """Bucket ids [..., 8] (int64) of the 8 cells that can hold a neighbour
+    within cell/2 of each query [..., 3]: per axis the query's cell and the
+    nearer neighbour, in the order (sx, sy, sz) in {0, 1}^3 of the
+    reference's loops. The side is q * (1 / cell) - c < 0.5 with the
+    product not rounded before the subtraction: XLA's CPU backend contracts
+    the reference's s - c into a fused multiply-add. Emulated in float64,
+    which holds the product exactly and, wherever the result is near 0.5,
+    the difference too, then rounded once to float32 as the fma rounds."""
+    c = _cell_of(queries, cell)
+    side = (queries.double() * reciprocal_f32(cell)
+            - c.float().double()).float()
+    off = torch.where(side < 0.5, -1, 1).to(torch.int32)  # [..., 3]
     hs = []
     for sx in (0, 1):
         for sy in (0, 1):
             for sz in (0, 1):
-                hs.append(_hash_cell(c[:, 0] + sx * off[:, 0],
-                                     c[:, 1] + sy * off[:, 1],
-                                     c[:, 2] + sz * off[:, 2], nb))
-    buckets = torch.stack(hs, dim=1)  # [Q, 8]
+                hs.append(_hash_cell(c[..., 0] + sx * off[..., 0],
+                                     c[..., 1] + sy * off[..., 1],
+                                     c[..., 2] + sz * off[..., 2], n_buckets))
+    return torch.stack(hs, dim=-1)
+
+
+def grid_gather_plain(g: FeatureGrid, queries: torch.Tensor, cell: float):
+    """Each query's 8-cell probe candidates, [3, Q, 8*cap] planar: the
+    plain composition (hashes, a row gather, a permute copy)."""
+    nb, cap = g.pts.shape[0], g.cap
+    q = queries.shape[0]
+    buckets = probe_buckets(queries, cell, nb)  # [Q, 8]
     rows = row_gather(g.pts, buckets.reshape(-1))  # [8Q, 3*cap]
     planar = rows.reshape(q, 8, 3, cap)
     return planar.permute(2, 0, 1, 3).reshape(3, q, 8 * cap)
+
+
+def grid_gather_pair(g_c: FeatureGrid, q_c: torch.Tensor, cell_c: float,
+                     g_s: FeatureGrid, q_s: torch.Tensor, cell_s: float):
+    """The probe candidates of both grids of a frame (corner, surf), each as
+    grid_gather_plain gives it. CPU tensors take grid_gather_plain; CUDA
+    tensors launch kernels/csrc/grid_probe.cu once for both (or raise —
+    there is no fallback)."""
+    if all(t.device.type == "cpu" for t in (g_c.pts, q_c, g_s.pts, q_s)):
+        return (grid_gather_plain(g_c, q_c, cell_c),
+                grid_gather_plain(g_s, q_s, cell_s))
+    return tuple(kernels.grid_probe([
+        (g.pts, q.contiguous(), reciprocal_f32(cell), g.pts.shape[0], 1)
+        for g, q, cell in ((g_c, q_c, cell_c), (g_s, q_s, cell_s))]))
 
 
 def knn_among_planar(cand: torch.Tensor, queries: torch.Tensor, k: int = 5):

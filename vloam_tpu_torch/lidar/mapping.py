@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..geometry import so3
 from ..solver.eig3 import eigvals_sym3, principal_eigenvector
 from ..solver.lm import ResidualFamily, lm_solve
-from .gridmap import (FeatureGrid, grid_create, grid_evict, grid_gather,
+from .gridmap import (FeatureGrid, grid_create, grid_evict, grid_gather_pair,
                       grid_insert, knn_among_planar)
 
 _EPS = 1e-9
@@ -191,9 +191,9 @@ def solve_mapping(grid_map: GridMap, corner_stack_xyz, corner_stack_mask,
     # outer rounds (the pose moves well under the cell margin between them).
     x = x0
     pc0 = so3.quat_rotate(x[:4], corner_stack_xyz) + x[4:]
-    cand_c = grid_gather(grid_map.corner, pc0, cfg.corner_cell)
     ps0 = so3.quat_rotate(x[:4], surf_stack_xyz) + x[4:]
-    cand_s = grid_gather(grid_map.surf, ps0, cfg.surf_cell)
+    cand_c, cand_s = grid_gather_pair(grid_map.corner, pc0, cfg.corner_cell,
+                                      grid_map.surf, ps0, cfg.surf_cell)
     B_c = corner_stack_xyz.shape[0]
     is_edge = (torch.arange(B_c + surf_stack_xyz.shape[0], device=dev)
                < B_c)[:, None]

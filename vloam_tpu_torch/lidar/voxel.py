@@ -16,11 +16,21 @@ Two things differ from a literal translation, both for exactness:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _P1, _P2, _P3, _P4 = 73856093, 19349669, 83492791, 2654435761
 _M32 = 0xFFFFFFFF
 _SCAN_BLOCK = 16
+
+
+def reciprocal_f32(x: float) -> float:
+    """1 / x rounded to float32, as a Python float. Scaling by it is how the
+    reference divides by a constant: XLA rewrites ``a / c`` into
+    ``a * (1 / c)`` with the reciprocal rounded to the operand's type, and
+    PyTorch on CUDA does the same for a Python-scalar divisor, while PyTorch
+    on the CPU divides. ``t * reciprocal_f32(c)`` rounds alike everywhere."""
+    return float(np.float32(1.0) / np.float32(x))
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:

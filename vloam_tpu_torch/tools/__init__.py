@@ -1,10 +1,12 @@
 """Measurement entry points of the port, run on the GPU:
 
     python -m vloam_tpu_torch.tools.profile_row_gather
-    python -m vloam_tpu_torch.tools.profile_ring_variants [--shapes]
+    python -m vloam_tpu_torch.tools.profile_grid_probe [--parent DIR]
+    python -m vloam_tpu_torch.tools.profile_ring_variants [--shapes] \
+        [--parent DIR]
 
-the counterparts of scripts/profile_pallas_gather.py and
-scripts/profile_ring_variants.py, and
+the counterparts of scripts/profile_pallas_gather.py (the row gather, and
+the map probe that fuses it) and scripts/profile_ring_variants.py, and
 
     python -m vloam_tpu_torch.tools.profile_zncc [--parent DIR]
     python -m vloam_tpu_torch.tools.profile_select_rings
@@ -12,9 +14,9 @@ scripts/profile_ring_variants.py, and
 
 (K3 and K1 by parts, warp-primitive latencies). All raise without a GPU.
 Beside them: timing.py (device time of a call, bounds), kernel_cases.py
-(crafted inputs for K1 select_rings, K2 ring_min2, S1 ring_min1 and K3
-zncc_describe: plain numpy, used by the CPU tests, the GPU tests and
-chip_smoke.py) and
+(crafted inputs for K1 select_rings, K2 ring_min2, S1 ring_min1 and
+ring_argmin2, K3 zncc_describe and S2 grid_probe: plain numpy, used by the
+CPU tests, the GPU tests and chip_smoke.py) and
 
     python -m vloam_tpu_torch.tools.trajectories save|diff ...
 

@@ -1,7 +1,8 @@
 """Crafted inputs for the kernels whose rules are easiest to get wrong: K1
 select_rings (strict sector selection), K2 ring_min2 (per-ring 2-smallest),
-S1 ring_min1 (per-ring minimum) and K3 zncc_describe (patch descriptors).
-Plain numpy from a seed; no device logic.
+S1 ring_min1 (per-ring minimum) and ring_argmin2 (argmin, mask, argmin), K3
+zncc_describe (patch descriptors) and S2 grid_probe (the map's 8-cell
+probe). Plain numpy from a seed; no device logic.
 
 The same cases are used three times: the CPU tests hold the plain PyTorch
 versions to the JAX package on them (tests/test_torch_scan_registration.py,
@@ -49,6 +50,15 @@ class Min2Case(NamedTuple):
     def slab_t(self) -> np.ndarray:
         """[S, 3, C], the layout the reductions take."""
         return np.ascontiguousarray(np.swapaxes(self.slab, 1, 2))
+
+
+class ProbeCase(NamedTuple):
+    name: str
+    n_streams: int  # the queries are n_streams equal runs, one per table
+    n_buckets: int  # per stream; table rows n_streams * n_buckets
+    # (table [n_streams * n_buckets, 3*cap] f32, queries [Q, 3] f32, cell)
+    # of the corner grid, then of the surf grid
+    jobs: tuple
 
 
 class ZnccCase(NamedTuple):
@@ -263,6 +273,121 @@ def ring_min1_cases(seed: int = 16834) -> list[Min2Case]:
         q[s] = slab[s, a]
     cases.append(Min2Case("min1_duplicates_across_groups", q, slab))
     return cases
+
+
+def ring_argmin2_cases(seed: int = 16835) -> list[Min2Case]:
+    """ring_argmin2's rules: the runner-up at the winner's distance (a
+    duplicated point) and two runners-up at one distance, the winner in the
+    last slot (of a ragged last chunk and of a full one), slot counts that
+    are no multiple of a chunk or of ring_min1's 512-slot tile, and rings
+    that are all SENTINEL but one."""
+    rng = np.random.default_rng(seed)
+
+    def queries(Q):
+        return rng.uniform(-40, 40, (Q, 3)).astype(np.float32)
+
+    # query s: its point at slot a, repeated at slot b > a (the runner-up
+    # ties the winner), and ring s's point c, repeated at d > c, just off
+    # the query (two runners-up at one distance when a == b is masked)
+    slab = _random_slab(rng, 600, live=True)
+    q = queries(40)
+    ties = ((0, 1, 2, 3), (5, 300, 7, 8), (515, 2, 40, 599), (3, 4, 513, 514),
+            (599, 511, 100, 101), (128, 129, 1, 0), (250, 251, 252, 253),
+            (10, 590, 590, 591))
+    for s, (a, b, c, d) in enumerate(ties):
+        near = q[s] + np.float32(0.5)
+        slab[s, c] = slab[s, d] = near
+        slab[s, a] = slab[s, b] = q[s]
+    cases = [Min2Case("argmin2_ties", q, slab)]
+
+    # the winner in the last slot: C = 130 ends in a chunk of 2 slots, 512 in
+    # a whole chunk and tile
+    for C in (130, 512):
+        slab = _random_slab(rng, C, live=True)
+        q = queries(70)
+        for s in range(_S):
+            slab[s, C - 1] = q[s]
+            slab[s, s] = q[s] + np.float32(0.25)  # the runner-up, early
+        cases.append(Min2Case(f"argmin2_last_slot_{C}", q, slab))
+
+    for Q, C in ((129, 7), (300, 129), (257, 513), (70, 1025)):
+        cases.append(Min2Case(f"argmin2_{Q}x{C}", queries(Q),
+                              _random_slab(rng, C)))
+
+    slab = np.full((_S, 133, 3), SENTINEL, np.float32)
+    slab[3, 77] = [1.0, 2.0, 3.0]
+    cases.append(Min2Case("argmin2_all_sentinel", queries(65), slab))
+    return cases
+
+
+def _probe_table(rng, rows: int, cap: int, empty: float) -> np.ndarray:
+    """Bucket rows [rows, 3*cap] x|y|z, each with a random number of live
+    slots (a share `empty` of the rows none) in random places, the other
+    slots SENTINEL."""
+    live = rng.integers(1, cap + 1, rows)
+    live[rng.random(rows) < empty] = 0
+    live[:2] = [0, cap]  # an empty row and a full one
+    mask = rng.random((rows, cap)).argsort(1) < live[:, None]
+    xyz = rng.uniform(-90, 90, (3, rows, cap)).astype(np.float32)
+    xyz[:, ~mask] = SENTINEL
+    return np.ascontiguousarray(xyz.transpose(1, 0, 2).reshape(rows, 3 * cap))
+
+
+def _on_borders(rng, n: int, cell: float) -> np.ndarray:
+    """Queries whose coordinates each sit at a cell's midpoint (s - c ==
+    0.5 exactly, for s = q * float32(1 / cell)), on a cell border, one ulp
+    below one, or anywhere, negative ones included."""
+    inv = np.float32(1.0) / np.float32(cell)
+    c = rng.integers(-60, 60, (n, 3)).astype(np.float32)
+    mids = (c + np.float32(0.5)) * np.float32(cell)
+    # keep the candidates whose scaled value is exactly the midpoint
+    for _ in range(8):
+        bad = (mids * inv - c) != np.float32(0.5)
+        mids[bad] = np.nextafter(mids[bad], np.float32(np.inf) * np.sign(
+            (c[bad] + np.float32(0.5)) - mids[bad] * inv))
+    mids = np.where((mids * inv - c) == np.float32(0.5), mids,
+                    np.float32(cell) * c)
+    border = c * np.float32(cell)
+    below = np.nextafter(border, np.float32(-np.inf))
+    anywhere = rng.uniform(-150, 150, (n, 3)).astype(np.float32)
+    pick = rng.integers(0, 4, (n, 3))
+    return np.choose(pick, [mids, border, below, anywhere]).astype(np.float32)
+
+
+def grid_probe_cases(seed: int = 16836, n_buckets: int = 1 << 10,
+                     caps=(32, 16), cells=(2.0, 2.4),
+                     n_streams: int = 3) -> list[ProbeCase]:
+    """The map probe's cases at the engines' bucket capacities (corner 32,
+    surf 16) and cells (2.0, 2.4 m): coordinates of both signs; queries at
+    cell midpoints (s - c == 0.5), on borders and one ulp below them; one
+    job with no query (either grid); tables of mostly empty, all-SENTINEL
+    rows; and n_streams streams in one flat table, whose last stream's rows
+    the probe reaches."""
+    rng = np.random.default_rng(seed)
+
+    def jobs(qs, streams=1, empty=0.2):
+        return tuple((_probe_table(rng, streams * n_buckets, cap, empty),
+                      q, cell) for cap, q, cell in zip(caps, qs, cells))
+
+    def uniform(n, lo=-150.0, hi=150.0):
+        return rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+
+    return [
+        ProbeCase("both_signs", 1, n_buckets, jobs((uniform(300),
+                                                    uniform(700)))),
+        ProbeCase("cell_borders", 1, n_buckets, jobs(
+            tuple(_on_borders(rng, 512, c) for c in cells))),
+        ProbeCase("no_corner_query", 1, n_buckets,
+                  jobs((uniform(0), uniform(333)))),
+        ProbeCase("no_surf_query", 1, n_buckets,
+                  jobs((uniform(77), uniform(0)))),
+        ProbeCase("sentinel_rows", 1, n_buckets,
+                  jobs((uniform(200, -20, 20), uniform(200, -20, 20)),
+                       empty=0.9)),
+        ProbeCase("streams", n_streams, n_buckets, jobs(
+            (uniform(n_streams * 64), _on_borders(rng, n_streams * 160,
+                                                  cells[1])), n_streams)),
+    ]
 
 
 def _patch_at(x0: int, y0: int, p: int) -> list[float]:

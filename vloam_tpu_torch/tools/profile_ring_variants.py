@@ -5,6 +5,7 @@ argmin-then-mask formulation (ring_argmin2), the min-only variant corner
 association uses (ring_min1) and the plain PyTorch version.
 
     python -m vloam_tpu_torch.tools.profile_ring_variants [--shapes]
+        [--parent DIR]
 
 The counterpart of scripts/profile_ring_variants.py, at its two shapes
 (corner 64 x 128 slots x 1024 queries, surf 64 x 512 x 2048) and on its
@@ -16,15 +17,22 @@ update if it skipped the chunks that cannot change a query's second minimum
 also builds ring_min2.cu (threads a group, queries a thread, slots a chunk)
 and ring_min1.cu (the same and groups a block) with other block shapes,
 checks each against the plain version and times it at the engines' two
-shapes (768 and 1536 queries), and times ring_min1 with parts of its work
-switched off (launch only; all but the chunk loop). Needs a GPU.
+shapes (768 and 1536 queries), times ring_min1 with parts of its work
+switched off (launch only; all but the chunk loop), and ring_argmin2 with
+other shared-memory budgets for its segment minima (longer or shorter
+segments) at the entry point's two shapes. With --parent DIR it
+builds DIR's ring_min1.cu (the S1 source of another checkout, e.g. the
+parent commit unpacked beside the tree) and times its ring_argmin2 beside
+the tree's at both shapes, in turns (parent, tree, tree, parent), each
+checked against the plain version first. Needs a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
-import sys
 import tempfile
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -138,6 +146,9 @@ MIN1_BLOCK_SHAPES = ((32, 4, 4, 4), (32, 4, 4, 8), (32, 4, 4, 2),
                      (32, 4, 2, 4), (32, 8, 4, 4), (64, 4, 1, 8))
 # ring_min1's own shape with parts of its work switched off (VLOAM_S1_PART)
 MIN1_PARTS = ((1, "launch only"), (2, "no chunk loop"))
+# ring_argmin2 (ring_min1.cu): bytes of pass 1's segment minima a block; the
+# first is the kernel's own
+ARGMIN2_STORES = ((32768,), (16384,), (8192,), (65536,))
 _SWEEPS = {
     "ring_min2": ("ring_min2.cu", ("VLOAM_K2_GROUP", "VLOAM_K2_QPT",
                                    "VLOAM_K2_CHUNK"), 4, ring_min2_plain,
@@ -146,6 +157,8 @@ _SWEEPS = {
                                    "VLOAM_S1_SPLIT", "VLOAM_S1_CHUNK"), 2,
                   ring_min1_plain, "threads a group, queries a thread, "
                   "groups a block, slots a chunk"),
+    "ring_argmin2": ("ring_min1.cu", ("VLOAM_A2_STORE",), 4, ring_min2_plain,
+                     "bytes of segment minima a block"),
 }
 
 
@@ -208,11 +221,67 @@ def run_block_shapes(name: str = "ring_min2", block_shapes=BLOCK_SHAPES,
     return out
 
 
+def run_parent(parent: str, shapes=SHAPES, runs: int = 30) -> dict:
+    """ring_argmin2 of another checkout's ring_min1.cu beside the tree's,
+    timed in turns (parent, tree, tree, parent) at each shape after both
+    are held to the plain version; returns {(label, shape name): [ms]}."""
+    require_cuda()
+    src = Path(parent) / "vloam_tpu_torch" / "kernels" / "csrc" / "ring_min1.cu"
+    p, i = ctypes.c_void_p, ctypes.c_int
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        (so, _), = build.build_variants(src, [{}], tmp)
+        fn = ctypes.CDLL(so).vloam_ring_argmin2
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        fn.restype = i
+        for name, S, C, Q in shapes:
+            q, slab_t = make(S, C, Q)
+
+            def parent_kernel():
+                outs = [torch.empty((S, Q), device=q.device,
+                                    dtype=torch.int32 if k % 2
+                                    else torch.float32) for k in range(4)]
+                err = fn(q.data_ptr(), slab_t.data_ptr(),
+                         *(o.data_ptr() for o in outs), Q, S, C,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+                return outs
+
+            want = ring_min2_plain(q, slab_t)
+            sides = {"parent": parent_kernel,
+                     "tree": lambda: kernels.ring_argmin2(q, slab_t)}
+            for label, f in sides.items():
+                got = f()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                    raise RuntimeError(f"the {label}'s ring_argmin2 differs "
+                                       f"from the plain version ({name})")
+            for label in ("parent", "tree", "tree", "parent"):
+                out.setdefault((label, name), []).append(
+                    device_ms(sides[label], runs, cold=False))
+            print(f"{name:6s} {Q} x [{S},3,{C}] ring_argmin2 "
+                  + ", ".join(f"{label} " + " / ".join(
+                      f"{t * 1e3:.2f}" for t in out[label, name]) + " us"
+                      for label in ("parent", "tree"))
+                  + " (in turns: parent, tree, tree, parent)", flush=True)
+    return out
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shapes", action="store_true",
+                    help="also time K2 and ring_min1 with other block shapes")
+    ap.add_argument("--parent", help="root of another checkout whose "
+                    "ring_argmin2 is timed beside the tree's")
+    args = ap.parse_args()
     require_cuda()
     print(card_line(), flush=True)
     run()
-    if "--shapes" in sys.argv[1:]:
+    if args.parent:
+        run_parent(args.parent)
+    if args.shapes:
+        run_block_shapes("ring_argmin2", ARGMIN2_STORES, shapes=SHAPES)
         run_block_shapes("ring_min2", BLOCK_SHAPES)
         run_block_shapes("ring_min1", MIN1_BLOCK_SHAPES, MIN1_PARTS)
 

@@ -79,6 +79,22 @@ def device_ms(fn, runs: int = 20, cold: bool = True) -> float:
     return ms
 
 
+def graphed(fn):
+    """fn captured once into a CUDA graph; returns its replay. A composition
+    of hundreds of small kernels outlasts device_ms's blocker (the host
+    cannot queue them as fast as the card runs them); its replay runs them
+    back to back, so device_ms of the replay is their device time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture, as torch.cuda.graph wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """The least time an H100 could take: the larger of bytes over its
     memory rate and operations over its float32 rate, and which of the two
@@ -95,6 +111,16 @@ def row_gather_bound(n_rows: int, width: int,
     once, each of the n_rows output rows written once, each int64 index read
     once; no arithmetic."""
     return bound_ms((n_unique + n_rows) * width * 4 + n_rows * 8, 0)
+
+
+def grid_probe_bound(jobs) -> tuple[float, str]:
+    """S2's map probe, jobs of (Q queries, bucket capacity cap, distinct
+    bucket rows probed): per job each distinct float32 row of 3*cap read
+    once, the [3, Q, 8*cap] candidates written once, the [Q, 3] queries
+    read once. The hashing (~110 integer and float operations a query) is
+    below a thousandth of the bytes' time and not counted."""
+    return bound_ms(sum(4 * (rows * 3 * cap + Q * 24 * cap + 3 * Q)
+                        for Q, cap, rows in jobs), 0)
 
 
 def ring_reduce_bound(Q: int, S: int, C: int, n_out: int) -> tuple[float, str]:

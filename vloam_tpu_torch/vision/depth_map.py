@@ -3,14 +3,19 @@ reference point_cloud_util.cpp):
 
 - build_depth_grid: project the velodyne points into the image (front
   filter depth > min_depth) and average pixel position and depth per
-  g x g pixel bucket, by ONE 4-channel index_add_ into a flat
-  (gw+1) x (gh+1) grid whose extra row and column take the dropped points,
+  g x g pixel bucket: ONE 4-channel sum per cell of a flat (gw+1) x (gh+1)
+  grid whose extra row and column take the dropped points,
 - query_depth: gather the (2r+1)^2 bucket window of each query as one flat
   [Q, win^2, 4] gather, require >= min_depth_neighbors filled buckets and
   inverse-distance-weight the 3 nearest (queryDepth, :302-407).
 
-On CUDA the scatter adds by atomics, so u, v and z may differ in the last
-bits between runs; the counts are exact.
+The per-cell sums add in a fixed order, each cell's points in point order:
+a stable sort of the cell ids, then a sequential sum per cell
+(``torch.segment_reduce``), the order in which XLA's CPU scatter adds the
+reference's ``.at[ix, iy].add``. No atomics (an ``index_add_`` on CUDA adds
+in whatever order its atomics land, and two runs differed in the last bits),
+so the grid is the same on every run and device. Bucket coordinates scale by
+``voxel.reciprocal_f32(g)``, the reference's ``/ g`` as XLA rounds it.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from ..lidar.voxel import reciprocal_f32
 
 
 class DepthGrid(NamedTuple):
@@ -49,6 +56,23 @@ def fma_matvec(x: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def cell_sums(cell: torch.Tensor, vals: torch.Tensor,
+              n_cells: int) -> torch.Tensor:
+    """Per cell in [0, n_cells - 1) the sum of the rows of vals [N, C]
+    whose cell [N] (int64) it is, each cell's rows added one after the
+    other in point order from 0 (an empty cell sums to 0): a stable sort by
+    cell, then one sequential sum per cell. The same on every run and
+    device. The last cell is the dump, whose sum nobody reads: it is left
+    at 0, since on CUDA one thread would add its points (most of a scan's)
+    one after the other."""
+    cell, order = torch.sort(cell, stable=True)
+    starts = torch.searchsorted(cell, torch.arange(n_cells,
+                                                   device=cell.device))
+    starts = torch.cat([starts, starts[-1:]])  # the dump's segment: empty
+    return torch.segment_reduce(vals[order], "sum", offsets=starts, axis=0,
+                                unsafe=True)
+
+
 def build_depth_grid(pts_velo: torch.Tensor, mask: torch.Tensor,
                      P_velo_to_img: torch.Tensor, cfg) -> DepthGrid:
     """pts_velo [N, 3] velodyne-frame points with validity mask [N];
@@ -61,16 +85,15 @@ def build_depth_grid(pts_velo: torch.Tensor, mask: torch.Tensor,
     zs = torch.where(front, z, 1.0)
     u = ph[:, 0] / zs
     v = ph[:, 1] / zs
-    fx = torch.floor(u / g)
-    fy = torch.floor(v / g)
+    fx = torch.floor(u * reciprocal_f32(g))
+    fy = torch.floor(v * reciprocal_f32(g))
     ok = front & (fx >= 0) & (fx < gw) & (fy >= 0) & (fy < gh)
     ix = torch.where(ok, fx, gw).to(torch.int64)  # out of range -> dump row
     iy = torch.where(ok, fy, gh).to(torch.int64)
     w = ok.to(torch.float32)
     vals = torch.stack([u * w, v * w, z * w, w], dim=1)  # [N, 4]
-    acc = torch.zeros(((gw + 1) * (gh + 1), 4), dtype=torch.float32,
-                      device=pts_velo.device)
-    acc.index_add_(0, ix * (gh + 1) + iy, vals)
+    # every dropped point goes to the last cell, (gw, gh)
+    acc = cell_sums(ix * (gh + 1) + iy, vals, (gw + 1) * (gh + 1))
     acc = acc.reshape(gw + 1, gh + 1, 4)[:gw, :gh]
     denom = torch.clamp(acc[..., 3], min=1.0)
     return DepthGrid(u=acc[..., 0] / denom, v=acc[..., 1] / denom,
@@ -95,8 +118,10 @@ def query_depth(grid: DepthGrid, xy: torch.Tensor, cfg) -> torch.Tensor:
     ], dim=-1).reshape(-1, 4)
 
     x, y = xy[:, 0], xy[:, 1]
-    ix = torch.clamp(torch.floor(x / g).to(torch.int64), 0, gw - 1)
-    iy = torch.clamp(torch.floor(y / g).to(torch.int64), 0, gh - 1)
+    ix = torch.clamp(torch.floor(x * reciprocal_f32(g)).to(torch.int64), 0,
+                     gw - 1)
+    iy = torch.clamp(torch.floor(y * reciprocal_f32(g)).to(torch.int64), 0,
+                     gh - 1)
     dx, dy = torch.meshgrid(torch.arange(win, device=dev),
                             torch.arange(win, device=dev), indexing="ij")
     off = dx.reshape(-1) * ph + dy.reshape(-1)
