@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the LiDAR-only
-LOAM engine, the combined camera + LiDAR engine and the 4-stream lockstep
-batch engine.
+LOAM engine, the combined camera + LiDAR engine, the 4-stream lockstep
+batch engine, and the host layer around them (command line, sequence
+runner, checkpoints, loop closure).
 
     python3 chip_smoke.py
 
@@ -64,6 +65,24 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      with the device time per launch of each hand-written kernel there (K3's
      in VloamEngine: the L2 the engine leaves it); printed, not gated: the
      profiler can lose records
+  14. the host layer (vloam_tpu_torch.cli, pipeline, runtime, backend):
+     a. the drive written as a KITTI odometry layout (velodyne/*.bin,
+        calib.txt, times.txt, ground truth), run by `python -m
+        vloam_tpu_torch run --polar-ingest --save-map` in a subprocess with
+        no --device (the default must be the card), scored by its `eval`
+        command: 32 finite LO / MO poses, MO error < 0.15 m, one published
+        map, the kernel launches the CLI prints; the range images it reads
+        hold rings 0-50, one row per written ring (the reference's HDL-64
+        ring formula drops the 13 lowest beams, as on a real KITTI scan)
+     b. run_sequence_fused in combined mode on the card with map
+        publication: VO / LO / MO errors as phase 8's, no host sync in
+        frames 1-15
+     c. resume: LoamEngine over frames 0-15, save_state, load_state into a
+        fresh engine, frames 16-31: the state round-trips bit for bit and
+        the rows equal phase 5's uninterrupted run's
+     d. close_loops on 14b's MO trajectory twice on the card (identical)
+        and once on the CPU (within 1e-3 m / 1e-3 rad), within 1 m of MO;
+        loops accepted, time and launches printed
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -516,7 +535,7 @@ def e2e_phase(cfg, frames, poses):
         fail(f"the frame loop synchronized with the device: {syncs[:3]}")
     if not err < 0.15:
         fail(f"MO error {err} m >= 0.15 m")
-    return res, eng
+    return res, eng, outs
 
 
 def cpu_phase(cfg, frames, res_gpu) -> None:
@@ -1149,6 +1168,307 @@ def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> None:
               for name, s in stats.items()), flush=True)
 
 
+def _xyz(frame) -> np.ndarray:
+    """A polar frame decoded on the host to its returns [n, 3] float32 (the
+    points a KITTI velodyne file holds)."""
+    from vloam_tpu_torch.data.synthetic import hdl64_elevations
+    from vloam_tpu_torch.lidar.loam_step import polar_to_xyz
+
+    elev = torch.tensor(np.radians(hdl64_elevations(frame.shape[0])),
+                        dtype=torch.float32)
+    xyz = polar_to_xyz(torch.from_numpy(frame.astype(np.int32)), elev,
+                       0.005).numpy()
+    return xyz[frame.reshape(-1) > 0]
+
+
+def write_kitti_layout(root, frames, poses, calib) -> None:
+    """The drive as a KITTI odometry sequence 00 under root: velodyne/*.bin
+    (float32 x, y, z, reflectance), calib.txt (P0..P3, Tr = velo -> cam0),
+    times.txt, and the ground truth as root/poses_00.txt (cam0 poses in the
+    first cam0 frame, as tests/fixtures/kitti_mini)."""
+    from pathlib import Path
+
+    seq = Path(root) / "sequences" / "00"
+    (seq / "velodyne").mkdir(parents=True)
+    for k, f in enumerate(frames):
+        pts = _xyz(f)
+        np.concatenate([pts, np.zeros((len(pts), 1), np.float32)], 1).astype(
+            np.float32).tofile(seq / "velodyne" / f"{k:06d}.bin")
+    P0 = np.hstack([calib.K, np.zeros((3, 1))])
+    Tr = np.linalg.inv(calib.imu_T_cam0)[:3]  # velo -> cam0
+
+    def row(m):
+        return " ".join(f"{v:.12e}" for v in np.ravel(m))
+
+    (seq / "calib.txt").write_text(
+        "".join(f"P{i}: {row(P0)}\n" for i in range(4)) + f"Tr: {row(Tr)}\n")
+    (seq / "times.txt").write_text(
+        "".join(f"{0.1 * k:.6e}\n" for k in range(len(frames))))
+    B = calib.imu_T_cam0
+    T0 = np.linalg.inv(poses[0] @ B)
+    (Path(root) / "poses_00.txt").write_text("".join(
+        row((T0 @ T @ B)[:3]) + "\n" for T in poses))
+
+
+def _cli(*args, timeout=600) -> str:
+    """python -m vloam_tpu_torch ARGS from the checkout's root; its stdout,
+    or the run fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "vloam_tpu_torch", *args],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"python -m vloam_tpu_torch {' '.join(args)} exited "
+             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _load_poses(path) -> np.ndarray:
+    return np.atleast_2d(np.loadtxt(path)).reshape(-1, 3, 4)
+
+
+def _projected_rings(data, frames) -> str:
+    """The range images the command line reads (--polar-ingest) hold rings
+    0-50 only, one row per written ring: the reference's HDL-64 ring formula
+    keeps ring ids 0-50 and drops the 13 lowest beams (scan_registration.cpp,
+    runtime/native/kitti_io.cpp), as on a real KITTI scan. Fails otherwise;
+    returns the line to print."""
+    from vloam_tpu_torch.data.kitti import KittiOdometrySequence
+
+    seq = KittiOdometrySequence(str(data), "00", polar_ingest=True)
+    kept = [0, N_FRAMES - 1]
+    for k in kept:
+        img = seq.frame(k)["polar"]
+        rows = np.flatnonzero((img > 0).any(axis=1)).tolist()
+        if rows != list(range(51)):
+            fail(f"frame {k} re-projected onto rings {rows}, want 0-50")
+    cells = [int((seq.frame(k)["polar"] > 0).sum()) for k in kept]
+    src = [int((frames[k][:51] > 0).sum()) for k in kept]
+    return (f"re-projected rings 0-50 of 64 (frames {kept}: {cells} returns, "
+            f"{src} in the drive's rings 0-50)")
+
+
+def host_cli_phase(frames, poses, calib) -> None:
+    """14a: the drive written as a KITTI odometry layout, run by the command
+    line in a subprocess with no --device (the default must be the card),
+    then scored by its eval command against the ground truth."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data, out, maps = (Path(tmp) / d for d in ("kitti", "out", "maps"))
+        write_kitti_layout(data, frames, poses, calib)
+        t_write = time.perf_counter() - t0
+        rings = _projected_rings(data, frames)
+        t0 = time.perf_counter()
+        stdout = _cli("run", "--odometry-root", str(data), "--seq", "00",
+                      "--sensor", "hdl64", "--mode", "lidar-only",
+                      "--polar-ingest", "--chunk", str(CHUNK), "--save-map",
+                      str(maps), "--out", str(out))
+        t_run = time.perf_counter() - t0
+        m = json.loads(_cli("eval", "--gt", str(data / "poses_00.txt"),
+                            "--pred", str(out / "MO1.txt")))
+        trajs = {w: _load_poses(out / f"{w}1.txt") for w in ("LO", "MO")}
+        published = sorted(p.name for p in maps.glob("*.npz"))
+        sizes = {}
+        for name in published:
+            with np.load(maps / name) as z:
+                sizes[name] = (len(z["corner"]), len(z["surf"]))
+    lines = {ln.split(":")[0]: ln for ln in stdout.splitlines()
+             if ln.startswith(("kitti io", "throughput", "kernel launches"))}
+    launches = json.loads(lines["kernel launches"].split(": ", 1)[1])
+    print(f"[14a host layer: CLI] python -m vloam_tpu_torch run "
+          f"--polar-ingest --chunk {CHUNK} --save-map over the drive written "
+          f"as KITTI odometry sequence 00 ({t_write:.1f} s to write): "
+          f"{lines.get('kitti io')}; {rings}; {lines.get('throughput')} "
+          f"(whole run, start-up included; the subprocess took {t_run:.1f} "
+          f"s); {lines['kernel launches']}; eval MO1 vs GT "
+          f"{json.dumps(m)}; published maps {sizes}", flush=True)
+    if "on cuda" not in lines.get("throughput", ""):
+        fail("the command line did not run on the card by default")
+    if launches != lidar_launches(N_FRAMES):
+        fail(f"CLI kernel launch counts {launches}, want "
+             f"{lidar_launches(N_FRAMES)}")
+    for w, tr in trajs.items():
+        if tr.shape != (N_FRAMES, 3, 4) or not np.isfinite(tr).all():
+            fail(f"{w}1.txt holds {tr.shape}, not {N_FRAMES} finite poses")
+    if not m["ate_max_m"] < 0.15:
+        fail(f"CLI MO error {m['ate_max_m']} m >= 0.15 m")
+    if published != [f"map_{N_FRAMES:06d}.npz"] or not all(
+            c > 0 and s > 0 for c, s in sizes.values()):
+        fail(f"published maps {sizes}, want one map_{N_FRAMES:06d}.npz with "
+             "corner and surf points")
+
+
+def host_combined_phase(cfg, frames, images, poses, calib) -> dict:
+    """14b: run_sequence_fused in combined mode on the card with --save-map's
+    publication; no host sync in frames 1-15 (the first chunk; frame 0
+    uploads the polar geometry once)."""
+    import tempfile
+    from pathlib import Path
+
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.pipeline import run_sequence_fused
+
+    syncs = []
+
+    def feed():
+        yield {"polar": frames[0], "image": images[0]}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            for k in range(1, CHUNK):
+                yield {"polar": frames[k], "image": images[k]}
+            torch.cuda.set_sync_debug_mode("default")
+        syncs.extend(str(w.message) for w in caught
+                     if "synchronizing CUDA operation" in str(w.message))
+        for k in range(CHUNK, N_FRAMES):
+            yield {"polar": frames[k], "image": images[k]}
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_sequence_fused(cfg, calib, feed(), chunk=CHUNK,
+                                 save_map=tmp, device="cuda")
+        published = sorted(p.name for p in Path(tmp).glob("*.npz"))
+    launches = dict(kernels.LAUNCHES)
+    err = vloam_errors(res["raw"], poses, calib)
+    print(f"[14b host layer: combined] run_sequence_fused(kitti_hdl64 "
+          f"detach_VO_LO=False, chunk {CHUNK}, save_map, device cuda) over "
+          f"the drive: {res['fps']:.2f} frames/s (its own clock, all "
+          f"{N_FRAMES} frames, start-up included); launches {launches}; max "
+          f"err vs GT LO {err['LO']:.4f} m, MO {err['MO']:.4f} m; VO ATE "
+          f"{err['VO']:.4f} m; min n32 {err['n32']}; published {published}; "
+          f"host syncs in frames 1-{CHUNK - 1} {len(syncs)} {clocks()}",
+          flush=True)
+    if launches != lidar_launches(N_FRAMES, zncc_describe=N_FRAMES):
+        fail(f"kernel launch counts {launches}")
+    if syncs:
+        fail(f"the first chunk synchronized with the device: {syncs[:3]}")
+    if not err["MO"] < 0.15 or err["n32"] == 0:
+        fail(f"combined host-layer errors {err}")
+    if published != [f"map_{N_FRAMES:06d}.npz"]:
+        fail(f"published maps {published}")
+    return res
+
+
+def host_resume_phase(cfg, frames, outs_gpu) -> None:
+    """14c: LoamEngine over frames 0-15, its state saved and loaded into a
+    fresh engine, which runs frames 16-31: the state round-trips bit for
+    bit and the resumed rows equal phase 5's uninterrupted run's."""
+    import tempfile
+    from pathlib import Path
+
+    from vloam_tpu_torch.lidar.loam_step import LoamEngine
+    from vloam_tpu_torch.runtime import checkpoint
+
+    eng = LoamEngine(cfg, chunk=CHUNK, device="cuda")
+    for k in range(CHUNK):
+        eng.push_polar(frames[k])
+    fresh = LoamEngine(cfg, chunk=CHUNK, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "state.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_state(path, eng.state)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        fresh.state = checkpoint.load_state(path, fresh.state)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    a, b = checkpoint._flatten(eng.state), checkpoint._flatten(fresh.state)
+    same_state = a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    first = eng.finish()
+    for k in range(CHUNK, N_FRAMES):
+        fresh.push_polar(frames[k])
+    rows = fresh.finish()
+    diff = float(np.abs(rows - outs_gpu[CHUNK:]).max())
+    same_rows = np.array_equal(rows, outs_gpu[CHUNK:]) and np.array_equal(
+        first, outs_gpu[:CHUNK])
+    print(f"[14c host layer: resume] LoamEngine frames 0-{CHUNK - 1}, "
+          f"save_state ({size / 2**20:.1f} MiB, {t_save:.2f} s) and "
+          f"load_state ({t_load:.2f} s) into a fresh engine, frames "
+          f"{CHUNK}-{N_FRAMES - 1}: {len(a)} leaves "
+          + ("bit-identical" if same_state else "DIFFER")
+          + f"; rows against phase 5's uninterrupted run "
+          + ("bit-identical" if same_rows else f"max |diff| {diff:.3g}"),
+          flush=True)
+    if not same_state:
+        fail("the state did not round-trip bit for bit")
+    if not same_rows:
+        fail(f"resumed rows differ from the uninterrupted run by {diff}")
+
+
+def host_loop_phase(cfg, frames, res) -> None:
+    """14d: close_loops on 14b's MO trajectory (min_gap 8, radius 50) twice
+    on the card (identical) and once on the CPU (within the parity test's
+    1e-3 m / 1e-3 rad), the poses within 1 m of MO."""
+    from scipy.spatial.transform import Rotation as R
+    from torch.profiler import ProfilerActivity, profile
+
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.backend.loop_closure import (close_loops,
+                                                      find_loop_candidates)
+    from vloam_tpu_torch.data.synthetic import pad_scan
+
+    q, t = res["raw"]["q_w_mo"], res["raw"]["t_w_mo"]
+    scans = [pad_scan(_xyz(f), cfg.lidar.max_points) for f in frames]
+    n_cand = len(find_loop_candidates(t, 50.0, 8))
+
+    def run(device):
+        return close_loops(q, t, scans.__getitem__, cfg, radius=50.0,
+                           min_gap=8, device=device)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card = run("cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = run("cuda")
+        torch.cuda.synchronize()
+    total = sum(e.count for e in prof.key_averages() if e.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    dt_cpu = time.perf_counter() - t0
+    dp = float(np.abs(card["poses"][:, 4:] - cpu["poses"][:, 4:]).max())
+    dr = float((R.from_quat(card["poses"][:, :4]).inv()
+                * R.from_quat(cpu["poses"][:, :4])).magnitude().max())
+    moved = float(np.linalg.norm(card["poses"][:, 4:] - t, axis=1).max())
+    same = (card["loops"] == again["loops"]
+            and np.array_equal(card["poses"], again["poses"]))
+    cg = max(64, 3 * N_FRAMES)
+    print(f"[14d host layer: loop closure] close_loops on 14b's MO "
+          f"trajectory (min_gap 8, radius 50): {n_cand} candidates, "
+          f"{len(card['loops'])} loops accepted {card['loops']}; "
+          f"{dt:.2f} s on the card (CPU {dt_cpu:.2f} s); kernel launches "
+          f"{launches}, {total} CUDA kernel launches in all (profiled run; 6 "
+          f"Gauss-Newton rounds x {cg} CG iterations); two card runs "
+          + ("identical" if same else "DIFFER")
+          + f"; card vs CPU max diff {dp:.2e} m, {dr:.2e} rad (loops "
+          + ("equal" if card["loops"] == cpu["loops"] else
+             f"differ: CPU {cpu['loops']}")
+          + f"); max move from MO {moved:.4f} m", flush=True)
+    want = {k: 0 for k in kernels.LAUNCHES}
+    want.update(select_rings=2 * n_cand, ring_min2=2 * n_cand,
+                ring_min1=2 * n_cand)
+    if launches != want:
+        fail(f"close_loops kernel launch counts {launches}, want {want}")
+    if not same:
+        fail("two card runs of close_loops differ")
+    if card["loops"] != cpu["loops"] or not (dp < 1e-3 and dr < 1e-3):
+        fail("close_loops on the card and on the CPU disagree")
+    if not moved < 1.0 or not card["loops"]:
+        fail(f"loop closure moved the trajectory {moved} m or accepted no "
+             "loop")
+
+
 def main() -> None:
     card = device_phase()
     build_phase()
@@ -1167,7 +1487,7 @@ def main() -> None:
     k1 = k1_phase(cfg, ff)
     k2, s1_min1, err_argmin2 = ring_phase(ff)
     del ff
-    res_gpu, eng = e2e_phase(cfg, frames, poses)
+    res_gpu, eng, outs_gpu = e2e_phase(cfg, frames, poses)
     cpu_phase(cfg, frames, res_gpu)
     k3 = k3_phase(cfg_v, images)
     res_v, launches_v, grid_line = vloam_phase(cfg_v, frames, images, poses,
@@ -1179,6 +1499,10 @@ def main() -> None:
     del eng, beng
     s1_argmin2 = ring_variants_phase(err_argmin2)
     profile_phase(cfg, cfg_v, frames, images, calib, streams)
+    host_cli_phase(frames, poses, calib)
+    res_host = host_combined_phase(cfg_v, frames, images, poses, calib)
+    host_resume_phase(cfg, frames, outs_gpu)
+    host_loop_phase(cfg, frames, res_host)
     # launches: each kernel's count over the run of the path that drives it,
     # with the counts set to 0 just before: the batch drive (phase 10), the
     # combined engine (phase 8) for K3, the ring-variants entry point (phase

@@ -59,6 +59,7 @@ needs JAX.)
   and identical to the CPU's (each cell adds its points in point order).
 - The batch engine on the card against the same engine on the CPU, the
   tolerances of the single engine's test.
+- python -m vloam_tpu_torch run with no --device runs on the card.
 """
 
 import numpy as np
@@ -575,3 +576,25 @@ def test_zncc_describe_kernel_crafted_cases(cuda, case):
             assert kernels.LAUNCHES["zncc_describe"] == n0 + 1
             assert torch.equal((got == 0).all(1), (want == 0).all(1))
             torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_cli_runs_on_the_card_by_default(cuda):
+    """python -m vloam_tpu_torch with no --device runs on the card: the
+    LiDAR path's kernels are launched (the CLI prints their counts)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "vloam_tpu_torch", "run", "--synthetic", "4",
+         "--sensor", "tiny", "--mode", "lidar-only", "--chunk", "2"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "frames/s on cuda" in proc.stdout
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("kernel launches: ")]
+    launches = json.loads(line[0][len("kernel launches: "):])
+    assert launches["select_rings"] == 4 and launches["grid_probe"] == 4
+    assert launches["ring_min2"] == launches["ring_min1"] == 8

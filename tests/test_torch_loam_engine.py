@@ -276,7 +276,12 @@ def test_port_never_imports_jax():
             "vloam_tpu_torch.tools.timing, "
             "vloam_tpu_torch.tools.profile_row_gather, "
             "vloam_tpu_torch.tools.profile_grid_probe, "
-            "vloam_tpu_torch.tools.profile_ring_variants; "
+            "vloam_tpu_torch.tools.profile_ring_variants, "
+            "vloam_tpu_torch.cli, vloam_tpu_torch.pipeline, "
+            "vloam_tpu_torch.runtime.checkpoint, "
+            "vloam_tpu_torch.runtime.profiling, vloam_tpu_torch.data.kitti, "
+            "vloam_tpu_torch.backend.loop_closure, "
+            "vloam_tpu_torch.parallel.pose_graph; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vloam_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -308,18 +313,32 @@ def test_chip_smoke_imports_only_the_port():
     assert (REPO / "vloam_tpu_torch/tools/profile_row_gather.py").exists()
 
 
-@pytest.mark.parametrize("profile", ["kitti_hdl64", "tiny_test_profile"])
+@pytest.mark.parametrize("profile", ["kitti_hdl64", "tiny_test_profile",
+                                     "reference_exact", "HDL32", "VLP16"])
 def test_port_config_equals_jax_config(profile):
     """Every field of the port's own config.py equals the JAX package's
-    field of the same name."""
+    field of the same name: each section, the pipeline's own flags
+    (save_traj, verbose_level, detach_VO_LO) and the sensor profiles the
+    CLI's --sensor picks (HDL32 / VLP16 as PipelineConfig(lidar=...))."""
     from vloam_tpu import config as jcfg
     from vloam_tpu_torch import config as tcfg
 
-    want, got = getattr(jcfg, profile)(), getattr(tcfg, profile)()
-    for section in ("lidar", "scanreg", "lo", "mapping"):
+    if profile in ("HDL32", "VLP16"):
+        want = jcfg.PipelineConfig(lidar=getattr(jcfg, profile))
+        got = tcfg.PipelineConfig(lidar=getattr(tcfg, profile))
+    else:
+        want, got = getattr(jcfg, profile)(), getattr(tcfg, profile)()
+    for section in ("lidar", "scanreg", "lo", "mapping", "vo"):
         g, w = getattr(got, section), getattr(want, section)
         for f in dataclasses.fields(g):
             assert getattr(g, f.name) == getattr(w, f.name), f.name
+    for f in dataclasses.fields(got):
+        if not dataclasses.is_dataclass(getattr(got, f.name)):
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert tcfg.HDL64_KITTI == tcfg.LidarProfile()
+    # the port keeps the profile fields it reads (not scan_period)
+    assert {f.name for f in dataclasses.fields(tcfg.LidarProfile)} < {
+        f.name for f in dataclasses.fields(jcfg.LidarProfile)}
 
 
 def test_port_synthetic_equals_jax_synthetic():

@@ -32,6 +32,7 @@ from vloam_tpu import vloam_step as jvs
 from vloam_tpu.data import synthetic as jsyn
 from vloam_tpu_torch import convert
 from vloam_tpu_torch import vloam_step as tvs
+from vloam_tpu_torch.lidar.loam_step import LoamEngine
 
 from test_pipeline import small_cfg, synth_setup
 
@@ -183,8 +184,9 @@ def test_engine_rejects_what_is_not_ported(xyz_drive):
     calib = xyz_drive[0]
     with pytest.raises(NotImplementedError, match="mesh"):
         tvs.VloamEngine(CFG, calib, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="map_callback"):
-        tvs.VloamEngine(CFG, calib, map_callback=print, device="cpu")
+    # the LiDAR-only engine refuses the mesh the same way
+    with pytest.raises(NotImplementedError, match="mesh"):
+        LoamEngine(CFG, mesh=object(), device="cpu")
     for option in ({"clahe": True}, {"keypoint_nms": True},
                    {"optical_flow_match": True}, {"lowtex_fallback": True},
                    {"detector": "orb"}, {"descriptor": "orb"},

@@ -13,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from vloam_tpu.config import LaserMappingConfig
+from vloam_tpu.lidar import batch_mapping as jbm
 from vloam_tpu.lidar import gridmap as jg
 from vloam_tpu.lidar import voxel as jv
+from vloam_tpu_torch.lidar import batch_mapping as tbm
 from vloam_tpu_torch.lidar import gridmap as tg
 from vloam_tpu_torch.lidar import voxel as tv
 from vloam_tpu_torch.tools import kernel_cases
@@ -237,3 +240,64 @@ def test_grid_gather_pair_dispatch_has_no_fallback():
     q = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError, match="CUDA tensor required"):
         tg.grid_gather_pair(g, q, 2.0, g, q, 2.4)
+
+
+def _border_points(rng, res, n=400, extent=40.0):
+    """Points on the map resolution's voxel borders: exact float32 multiples
+    k * res (k != 0, so no point is a denormal; a map never holds one, and
+    XLA flushes them to zero), one ulp either side of them, and mixes of
+    the three per axis. Also the voxel interiors (k + 1/2) * res, which
+    make the border points' buckets live and their voxel on one side
+    occupied."""
+    k = rng.integers(1, int(extent / res), (n, 3))
+    k = k * rng.choice([-1, 1], (n, 3))
+    base = (k * np.float32(res)).astype(np.float32)
+    up = np.nextafter(base, np.float32(np.inf))
+    down = np.nextafter(base, np.float32(-np.inf))
+    pick = rng.integers(0, 3, base.shape)
+    mixed = np.where(pick == 0, base, np.where(pick == 1, up, down))
+    border = np.concatenate([base, up, down, mixed]).astype(np.float32)
+    inside = (base + np.float32(res / 2)).astype(np.float32)
+    return inside, border
+
+
+_MAP = LaserMappingConfig()
+
+
+@pytest.mark.parametrize("cell,res,cap", [
+    (_MAP.corner_cell, _MAP.line_resolution, _MAP.corner_bucket_cap),
+    (_MAP.surf_cell, _MAP.plane_resolution, _MAP.surf_bucket_cap)],
+    ids=["corner", "surf"])
+def test_insert_dedup_rounds_as_the_jitted_reference(rng, cell, res, cap):
+    """The insert's voxel dedup at the map resolution rounds as the
+    reference's floor(p / res) does under jit (p * float32(1 / res)): on
+    voxel-border points inside live buckets, grid_insert and the batch
+    engine's merged insert give tables and n_live bit-identical to the
+    jitted JAX grid_insert / batch_grid_insert."""
+    nb = 1 << 10
+    ins_j = jax.jit(jg.grid_insert, static_argnames=("cell", "res"))
+    bins_j = jax.jit(jbm.batch_grid_insert,
+                     static_argnames=("cell", "res", "batch"))
+    gj, gt = jg.grid_create(nb, cap), tg.grid_create(nb, cap, "cpu")
+    bj = jbm.BatchFeatureGrid(
+        pts=jnp.full((2 * nb, 3 * cap), jg.SENTINEL, jnp.float32),
+        n_live=jnp.zeros((2,), jnp.int32))
+    bt = tbm.BatchFeatureGrid(pts=_t(np.asarray(bj.pts)),
+                              n_live=torch.zeros((2,), dtype=torch.int32))
+    for _ in range(2):
+        inside, border = _border_points(rng, res)
+        for p in (inside, border):
+            m = np.ones(len(p), bool)
+            gj = ins_j(gj, jnp.asarray(p), jnp.asarray(m), cell=cell, res=res)
+            gt = tg.grid_insert(gt, _t(p), _t(m), cell, res)
+            _assert_grid_equal(gj, gt)
+            half = len(p) // 2
+            pb, mb = p[:2 * half].reshape(2, half, 3), m[:2 * half].reshape(
+                2, half)
+            bj = bins_j(bj, jnp.asarray(pb), jnp.asarray(mb), cell=cell,
+                        res=res, batch=2)
+            bt = tbm.batch_grid_insert(bt, _t(pb), _t(mb), cell, res, 2)
+            np.testing.assert_array_equal(bt.pts.numpy(), np.asarray(bj.pts))
+            np.testing.assert_array_equal(bt.n_live.numpy(),
+                                          np.asarray(bj.n_live))
+    assert int(gt.n_live) > 1000 and int(bt.n_live.sum()) > 1000

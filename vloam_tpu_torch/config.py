@@ -1,6 +1,6 @@
 """Configuration of the ported paths: the fields of vloam_tpu/config.py that
-the port reads (the LiDAR sections, the visual odometry section and the
-pipeline's VO<->LO coupling flag), with the same names and defaults (the
+the port reads (the LiDAR sections, the visual odometry section, the sensor
+profiles and the pipeline's flags), with the same names and defaults (the
 port's own copy, so that the port and its smoke run import nothing of the
 JAX package).
 
@@ -21,11 +21,18 @@ from dataclasses import dataclass, field
 class LidarProfile:
     """Sensor geometry (reference scan_registration.cpp:195-226)."""
 
+    name: str = "HDL-64"
     n_scans: int = 64
     minimum_range: float = 5.0  # loam_velodyne_HDL_64_kitti.launch:14
     # static caps: points per ring after padding, total input cap
     max_points: int = 131072
     ring_capacity: int = 2560
+
+
+# the reference's launch variants loam_velodyne_{HDL_64,HDL_32,VLP_16}
+HDL64_KITTI = LidarProfile()
+HDL32 = LidarProfile(name="HDL-32", n_scans=32, minimum_range=0.1)
+VLP16 = LidarProfile(name="VLP-16", n_scans=16, minimum_range=0.3)
 
 
 @dataclass(frozen=True)
@@ -62,6 +69,9 @@ class LaserOdometryConfig:
     huber_delta: float = 0.1  # ":217"
     distortion: bool = False  # laser_odometry.h:90 (KITTI clouds pre-deskewed)
     mapping_skip_frame: int = 1  # launch:6
+    # warn when corner + surf correspondences fall below this after the
+    # final round (reference "less correspondence!", laser_odometry.cpp:452)
+    min_correspondences: int = 10
 
 
 @dataclass(frozen=True)
@@ -87,6 +97,9 @@ class LaserMappingConfig:
     corner_stack_cap: int = 2048
     surf_stack_cap: int = 6144
     knn: int = 5
+    # publish the accumulated map every N frames (reference map_pub_number,
+    # laser_mapping.cpp:778-793), read by the engines' map_callback
+    map_pub_number: int = 20
     # hashed cell-slab map (gridmap.py): cells are integer multiples of the
     # matching resolution and >= 2 * sqrt(neighbor_radius_sq); overfull
     # buckets drop new points
@@ -150,12 +163,14 @@ class VisualOdometryConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """The engines' configuration tree."""
+    """The engines' and the host layer's configuration tree."""
 
     # True: VO and LO run side by side; False: each LO solve is seeded from
     # the same frame's VO (reference vloam_main.launch:4)
     detach_VO_LO: bool = True
-    lidar: LidarProfile = field(default_factory=LidarProfile)
+    save_traj: bool = True  # write {VO,LO,MO}<d>.txt (run_sequence_fused)
+    verbose_level: int = 0
+    lidar: LidarProfile = field(default_factory=lambda: HDL64_KITTI)
     scanreg: ScanRegistrationConfig = field(
         default_factory=ScanRegistrationConfig)
     lo: LaserOdometryConfig = field(default_factory=LaserOdometryConfig)
@@ -190,8 +205,8 @@ def reference_exact() -> PipelineConfig:
 def tiny_test_profile() -> PipelineConfig:
     """Small shapes for fast unit tests."""
     return PipelineConfig(
-        lidar=LidarProfile(n_scans=16, minimum_range=0.5, max_points=8192,
-                           ring_capacity=512),
+        lidar=LidarProfile(name="tiny", n_scans=16, minimum_range=0.5,
+                           max_points=8192, ring_capacity=512),
         scanreg=ScanRegistrationConfig(sharp_cap=256, less_sharp_cap=2048,
                                        flat_cap=512, less_flat_cap=4096),
         mapping=LaserMappingConfig(cube_width=11, cube_height=11, cube_depth=5,

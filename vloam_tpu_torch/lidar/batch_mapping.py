@@ -38,7 +38,8 @@ import torch
 from .. import kernels
 from ..geometry import so3
 from ..solver.lm import lm_solve
-from .gridmap import SENTINEL, _bucket_of, probe_buckets, row_gather
+from .gridmap import (SENTINEL, _bucket_of, _cell_of, probe_buckets,
+                      row_gather)
 from .mapping import (_cube_coord, _retract, corner_fit, mo_families,
                       surf_fit, window_half_extent)
 from .voxel import reciprocal_f32
@@ -167,8 +168,8 @@ def _merged_row_insert(tab: torch.Tensor, key: torch.Tensor, p: torch.Tensor,
 
     # voxel dedup vs the existing map row (first observation wins,
     # reference laser_mapping.cpp:688-702; see gridmap.grid_insert)
-    v = torch.floor(pstack / res).to(i32)  # [3, N] exact voxel index
-    sv = torch.floor(slab / res).to(i32)
+    v = _cell_of(pstack, res)  # [3, N] exact voxel index
+    sv = _cell_of(slab, res)
     dup = torch.any(torch.all(sv == v[:, :, None], dim=0), dim=-1)  # [N]
 
     idx = torch.arange(N, dtype=i32, device=dev)
@@ -208,8 +209,14 @@ def _merged_row_insert(tab: torch.Tensor, key: torch.Tensor, p: torch.Tensor,
     seg_f = segment_sum(columns(frac_q))
     seg_m = segment_sum(torch.cat([hi, hi, hi], dim=1))
 
-    # exactly one contributor per written column: reconstruct its value
-    val = seg_v.to(torch.float32) * res + seg_f.to(torch.float32) * inv_q
+    # exactly one contributor per written column: reconstruct its value.
+    # XLA contracts the reference's v * res + f * inv_q into
+    # fma(v, res, f * inv_q); emulated in float64, which holds the product
+    # and the sum exactly, then rounded once to float32. The int32 index
+    # times a float64 0-d tensor is one float64 kernel, and f * inv_q one
+    # float32 kernel, so no cast is launched but the final rounding
+    res64 = torch.tensor(res, dtype=torch.float32).double()
+    val = (seg_v * res64 + seg_f * inv_q).float()
     new_row = torch.where(seg_m > 0, val, rows)
     is_end = torch.cat([differs, one])
     # rows that are not written land in a dump row NBt, sliced off below

@@ -84,7 +84,8 @@ def grid_create(n_buckets: int, cap: int, device) -> FeatureGrid:
 
 
 def _cell_of(p: torch.Tensor, cell: float) -> torch.Tensor:
-    """int32 floor of p / cell, rounded as the reference rounds it."""
+    """int32 floor of p / cell, rounded as the reference rounds it (also the
+    insert's voxel index at the map resolution)."""
     return torch.floor(p * reciprocal_f32(cell)).to(torch.int32)
 
 
@@ -101,10 +102,10 @@ def grid_insert(g: FeatureGrid, p: torch.Tensor, mask: torch.Tensor,
     B = p.shape[0]
     dev = p.device
     b = _bucket_of(p, cell, nb)  # [B]
-    v = torch.floor(p.T / res).to(torch.int32)  # [3, B]
+    v = _cell_of(p.T, res)  # [3, B] voxel index, rounded as the reference's
     rows = row_gather(g.pts, b)  # [B, 3*cap]
     slab = rows.reshape(B, 3, cap).permute(1, 0, 2)  # [3, B, cap]
-    sv = torch.floor(slab / res).to(torch.int32)
+    sv = _cell_of(slab, res)
     dup = torch.any(torch.all(sv == v[:, :, None], dim=0), dim=-1)
     keep = mask & ~dup
     key = torch.where(keep, b, nb)
@@ -144,6 +145,18 @@ def grid_evict(g: FeatureGrid, center: torch.Tensor,
     keep = live & inside
     pts = torch.where(keep[:, None, :], xyz, SENTINEL).reshape(-1, 3 * cap)
     return FeatureGrid(pts=pts, n_live=torch.sum(keep, dtype=torch.int32))
+
+
+def grid_export(g: FeatureGrid, max_points: int | None = None):
+    """The live points as a numpy [M, 3] float32 array in the reference's
+    row order (bucket, then slot): masked on the device, then one download
+    of the live rows. A host sync: call it between chunks, not in one."""
+    cap = g.cap
+    pts = g.pts.reshape(-1, 3, cap).transpose(1, 2).reshape(-1, 3)
+    out = pts[pts[:, 0] < SENTINEL * 0.5]
+    if max_points is not None:
+        out = out[:max_points]
+    return out.cpu().numpy()
 
 
 def probe_buckets(queries: torch.Tensor, cell: float,

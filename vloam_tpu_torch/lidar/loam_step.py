@@ -28,7 +28,7 @@ import torch
 from ..data.synthetic import hdl64_elevations, pad_scan
 from ..geometry import so3
 from .batch_mapping import BatchGridMap, batch_map_evict, batch_solve_mapping
-from .mapping import GridMap, solve_mapping
+from .mapping import GridMap, export_map_points, solve_mapping
 from .odometry import solve_lo
 from .ring_assoc import RingSlab
 from .scan_registration import (azimuths, polar_directions, ray_directions,
@@ -257,10 +257,18 @@ class LoamEngine:
     device: where the state lives and every frame runs: the card by default
     (the hand-written kernels), and without one the constructor raises;
     "cpu" runs the kernels' plain PyTorch versions.
-    pack12: stage push_polar images as 12-bit packed uint8 (see pack12())."""
+    pack12: stage push_polar images as 12-bit packed uint8 (see pack12()).
+    map_callback(frame_idx, corner [Mc, 3], surf [Ms, 3]): called after the
+    chunk that reaches every cfg.mapping.map_pub_number frames with the
+    accumulated map (the /laser_cloud_map publisher analogue, reference
+    laser_mapping.cpp:778-793); each call downloads the map, a host sync
+    between chunks. mesh: not ported (raises NotImplementedError)."""
 
     def __init__(self, cfg, chunk: int = 8, quantize_mm: float = 0.0,
-                 device="cuda", pack12: bool = False):
+                 device="cuda", pack12: bool = False, map_callback=None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("LoamEngine(mesh=...) is not ported")
         self.cfg = cfg
         self.chunk = chunk
         self.quantize_mm = quantize_mm
@@ -273,6 +281,18 @@ class LoamEngine:
         self._pending_polar: list[np.ndarray] = []
         self._dirs = None
         self._polar_scale = 0.005
+        self.map_callback = map_callback
+        self._frames_done = 0
+        self._next_pub = cfg.mapping.map_pub_number
+
+    def _after_chunk(self, n_frames: int):
+        self._frames_done += n_frames
+        if (self.map_callback is not None
+                and self._frames_done >= self._next_pub):
+            corner, surf = export_map_points(self.state.cube)
+            self.map_callback(self._frames_done, corner, surf)
+            while self._next_pub <= self._frames_done:
+                self._next_pub += self.cfg.mapping.map_pub_number
 
     def _priors(self, f: int):
         """Identity priors for f frames (use_prior all False)."""
@@ -319,6 +339,7 @@ class LoamEngine:
             self.state, ranges, self._dirs, pq, pt, up, self.cfg,
             self._polar_scale, packed=self.pack12)
         self._outs.append(outs)
+        self._after_chunk(ranges.shape[0])
 
     def _flush(self):
         if not self._pending_scans:
@@ -330,6 +351,7 @@ class LoamEngine:
         self.state, outs = loam_run_chunk(self.state, scans, ns, pq, pt, up,
                                           self.cfg, self.quantize_mm / 1000.0)
         self._outs.append(outs)
+        self._after_chunk(scans.shape[0])
 
     def finish(self) -> np.ndarray:
         """[N, OUT_DIM] packed results (one download)."""

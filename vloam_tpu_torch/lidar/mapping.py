@@ -25,8 +25,8 @@ import torch.nn.functional as F
 from ..geometry import so3
 from ..solver.eig3 import eigvals_sym3, principal_eigenvector
 from ..solver.lm import ResidualFamily, lm_solve
-from .gridmap import (FeatureGrid, grid_create, grid_evict, grid_gather_pair,
-                      grid_insert, knn_among_planar)
+from .gridmap import (FeatureGrid, grid_create, grid_evict, grid_export,
+                      grid_gather_pair, grid_insert, knn_among_planar)
 
 _EPS = 1e-9
 
@@ -250,3 +250,11 @@ def map_update(grid_map: GridMap, corner_stack_xyz, corner_stack_mask,
                            torch.where(changed, e.n_live, g.n_live))
 
     return GridMap(select(corner), select(surf), center)
+
+
+def export_map_points(grid_map: GridMap, max_points: int = 1 << 20):
+    """The accumulated map as (corner [Mc, 3], surf [Ms, 3]) numpy arrays
+    (the /laser_cloud_map publisher analogue, reference
+    laser_mapping.cpp:778-793)."""
+    return (grid_export(grid_map.corner, max_points),
+            grid_export(grid_map.surf, max_points))

@@ -35,7 +35,7 @@ from .data.synthetic import hdl64_elevations, pad_scan
 from .geometry import so3
 from .lidar.loam_step import (_select_tree, _upload, _upload_polar,
                               engine_device, pack12, unpack12, unpack_outputs)
-from .lidar.mapping import GridMap, solve_mapping
+from .lidar.mapping import GridMap, export_map_points, solve_mapping
 from .lidar.odometry import solve_lo
 from .lidar.ring_assoc import RingSlab
 from .lidar.scan_registration import (polar_directions, ray_directions,
@@ -421,15 +421,15 @@ class VloamEngine:
     (the hand-written kernels), and without one the constructor raises;
     "cpu" runs the kernels' plain PyTorch versions.
     pack12: stage push_polar images as 12-bit packed uint8
-    (lidar.loam_step.pack12)."""
+    (lidar.loam_step.pack12).
+    map_callback(frame_idx, corner, surf): as LoamEngine's, after the chunk
+    that reaches every cfg.mapping.map_pub_number frames. mesh: not ported
+    (raises NotImplementedError)."""
 
     def __init__(self, cfg, calib, chunk: int = 8, device="cuda",
                  pack12: bool = False, map_callback=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("VloamEngine(mesh=...) is not ported")
-        if map_callback is not None:
-            raise NotImplementedError(
-                "VloamEngine(map_callback=...) is not ported")
         check_vo_options(cfg.vo)
         self.cfg = cfg
         self.chunk = chunk
@@ -462,6 +462,9 @@ class VloamEngine:
         self._polar: list[np.ndarray] = []
         self._geom = None
         self._polar_scale = 0.005
+        self.map_callback = map_callback
+        self._next_pub = cfg.mapping.map_pub_number
+        self._frame = 0  # frames pushed through, for the publish cadence
 
     @property
     def state(self):
@@ -520,6 +523,8 @@ class VloamEngine:
             self.vstate, ranges, self._geom, imgs, self.ext, self.cfg,
             self._polar_scale, packed=self.pack12)
         self._outs.append(self._run_mapping(vl_out, stacks))
+        self._frame += ranges.shape[0]
+        self._maybe_publish_map()
 
     def _flush(self):
         if not self._scans:
@@ -531,6 +536,15 @@ class VloamEngine:
         self.vstate, vl_out, stacks = vision_lo_run_chunk(
             self.vstate, scans, ns, imgs, self.ext, self.cfg)
         self._outs.append(self._run_mapping(vl_out, stacks))
+        self._frame += scans.shape[0]
+        self._maybe_publish_map()
+
+    def _maybe_publish_map(self):
+        if self.map_callback is not None and self._frame >= self._next_pub:
+            corner, surf = export_map_points(self.lstate.cube)
+            self.map_callback(self._frame, corner, surf)
+            while self._next_pub <= self._frame:
+                self._next_pub += self.cfg.mapping.map_pub_number
 
     def finish(self) -> np.ndarray:
         """[N, VLOAM_OUT_DIM] packed rows (one download)."""
