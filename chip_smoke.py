@@ -1,7 +1,7 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the LiDAR-only
 LOAM engine, the combined camera + LiDAR engine, the 4-stream lockstep
-batch engine, and the host layer around them (command line, sequence
-runner, checkpoints, loop closure).
+batch engine, the host layer around them (command line, sequence runner,
+checkpoints, loop closure) and the per-stage host engine.
 
     python3 chip_smoke.py
 
@@ -83,6 +83,23 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      d. close_loops on 14b's MO trajectory twice on the card (identical)
         and once on the CPU (within 1e-3 m / 1e-3 rad), within 1 m of MO;
         loops accepted, time and launches printed
+  15. the host engine (vloam_tpu_torch.pipeline.run_sequence, the per-stage
+     classes, --engine host) and the vision options:
+     a. run_sequence(kitti_hdl64 with detach_VO_LO=False) on the card over
+        the drive decoded to xyz and its images as float [0, 1]: finite VO /
+        LO / MO, MO error < 0.15 m, LO / MO within 0.05 m of 14b's fused
+        run, K1, K2, K3, ring_min1, grid_probe and row_gather each launched;
+        frames/s, host syncs a frame and the stage timings printed
+     b. its first 4 frames again on the CPU: LO, MO and VO agree
+     c. lk_flow at full width (2048 keypoints, window 15, 3 levels, 10
+        iterations) on one frame pair, card against CPU (status on >= 99%,
+        xy1 within 0.01 px on >= 99%); VloamEngine over the drive with
+        optical_flow_match and with lowtex_fallback: no host sync in frames
+        16-31, MO < 0.15 m, launches a frame beside the default path's
+     d. python -m vloam_tpu_torch run --synthetic 12 --mode combined
+        --engine host --viz DIR with no --device, and with --optical-flow,
+        side by side: match (flow) and depth PNGs, the timing summary and
+        the kernel launches they print
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -1133,7 +1150,7 @@ def _profile(push, first: int, n: int = PROFILE_FRAMES) -> dict:
         "host_ms": host * 1e3 / n, "wall_ms": wall * 1e3 / n}
 
 
-def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> None:
+def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> dict:
     from vloam_tpu_torch.lidar.loam_step import BatchLoamEngine, LoamEngine
     from vloam_tpu_torch.vloam_step import VloamEngine
 
@@ -1166,6 +1183,7 @@ def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> None:
               + ", ".join(f"{k.split('_kernel')[0]} {v:.1f}"
                           for k, v in s["kernel_us"].items())
               for name, s in stats.items()), flush=True)
+    return stats
 
 
 def _xyz(frame) -> np.ndarray:
@@ -1469,6 +1487,228 @@ def host_loop_phase(cfg, frames, res) -> None:
              "loop")
 
 
+def _host_frames(frames, images) -> list[dict]:
+    """The drive as the host engine reads it: each polar frame decoded to
+    its xyz returns, each image as float32 in [0, 1]."""
+    return [{"points": _xyz(f), "image": im.astype(np.float32) / 255.0}
+            for f, im in zip(frames, images)]
+
+
+def _cam_errors(trajs, poses, calib) -> dict:
+    """LO / MO max position error and VO ATE (position RMSE) of cam0-start
+    trajectories [N, 3, 4] against ground truth (as vloam_errors)."""
+    B = calib.imu_T_cam0
+    T0 = poses[0] @ B
+    gt_c = np.stack([(np.linalg.inv(T0) @ (T @ B))[:3, 3] for T in poses])
+    d = {w: np.linalg.norm(trajs[w][:, :, 3] - gt_c[:len(trajs[w])], axis=1)
+         for w in ("VO", "LO", "MO")}
+    return {"LO": float(d["LO"].max()), "MO": float(d["MO"].max()),
+            "VO": float(np.sqrt(np.mean(d["VO"] ** 2)))}
+
+
+def host_engine_phase(cfg, host_frames, poses, calib, res_fused) -> dict:
+    """15a: run_sequence (the per-stage host engine) over the drive on the
+    card, every host sync counted; errors against ground truth and against
+    14b's fused run of the same frames, the kernels it launches."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.pipeline import run_sequence
+    from vloam_tpu_torch.runtime.profiling import summarize_timings
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = run_sequence(cfg, calib, host_frames, device="cuda")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    clk = clocks()
+    syncs = sum("synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    launches = dict(kernels.LAUNCHES)
+    err = _cam_errors(res, poses, calib)
+    fused = res_fused["raw"]
+    vs_fused = {w: float(np.linalg.norm(res[w][:, :, 3]
+                                        - fused[f"traj_{w}"][:, :, 3],
+                                        axis=1).max()) for w in ("LO", "MO")}
+    summary = summarize_timings(res["timings"])
+    print(f"[15a host engine] run_sequence(kitti_hdl64 detach_VO_LO=False, "
+          f"device cuda) over the drive decoded to xyz + float images: "
+          f"{N_FRAMES / dt:.2f} frames/s (its own clock, all {N_FRAMES} "
+          f"frames, start-up and sync debug mode included); host syncs "
+          f"{syncs / N_FRAMES:.2f} a frame; launches {launches}; max err vs "
+          f"GT LO {err['LO']:.4f} m, MO {err['MO']:.4f} m; VO ATE "
+          f"{err['VO']:.4f} m; against 14b's fused run LO "
+          f"{vs_fused['LO']:.4f} m, MO {vs_fused['MO']:.4f} m; stage ms "
+          f"(mean, frames 2 on) "
+          + json.dumps({k: round(v, 3) for k, v in summary.items()})
+          + f" {clk}", flush=True)
+    if not all(np.isfinite(res[w]).all() and res[w].shape == (N_FRAMES, 3, 4)
+               for w in ("VO", "LO", "MO")):
+        fail("the host engine's trajectories are not finite")
+    if not err["MO"] < 0.15:
+        fail(f"host engine MO error {err['MO']} m >= 0.15 m")
+    if not max(vs_fused.values()) < 0.05:
+        fail(f"host engine against the fused engine {vs_fused}")
+    path = ("select_rings", "ring_min2", "ring_min1", "grid_probe",
+            "row_gather", "zncc_describe")
+    if not all(launches[k] > 0 for k in path):
+        fail(f"the host engine did not launch every kernel of its path: "
+             f"{launches}")
+    return res
+
+
+def host_cpu_phase(cfg, host_frames, calib, res_gpu) -> None:
+    """15b: the first frames of 15a again on the CPU."""
+    from vloam_tpu_torch.pipeline import run_sequence
+
+    n = VLOAM_CPU_FRAMES
+    t0 = time.perf_counter()
+    res = run_sequence(cfg, calib, host_frames[:n], device="cpu")
+    diff = {w: float(np.abs(res[w][:, :, 3] - res_gpu[w][:n, :, 3]).max())
+            for w in VLOAM_CPU_TOL}
+    print(f"[15b host engine card vs CPU] first {n} frames: max position "
+          "diff " + ", ".join(f"{w} {d:.2e} m (bound {VLOAM_CPU_TOL[w]:.0e})"
+                              for w, d in diff.items())
+          + f" (CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
+    if any(not diff[w] < VLOAM_CPU_TOL[w] for w in diff):
+        fail("card and CPU trajectories of the host engine disagree")
+
+
+def flow_phase(cfg, frames, images, poses, calib, default_stats) -> None:
+    """15c: lk_flow at full width (2048 keypoints, window 15, 3 levels, 10
+    iterations) on one frame pair, card against CPU; then VloamEngine over
+    the drive with optical_flow_match and with lowtex_fallback: launches
+    per frame under torch.profiler (frames 8-15, as phase 13) beside the
+    default path's, no host sync in frames 16-31, errors."""
+    import dataclasses
+
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.tools.timing import device_ms
+    from vloam_tpu_torch.vision.features import detect_keypoints
+    from vloam_tpu_torch.vision.optical_flow import lk_flow
+    from vloam_tpu_torch.vloam_step import VloamEngine, unpack_vloam_outputs
+
+    vo = cfg.vo
+    img0, img1 = (torch.from_numpy(images[k]).to("cuda").float() / 255.0
+                  for k in (0, 1))
+    xy0, _, mask = detect_keypoints(img0, vo)
+    gxy, gok = lk_flow(img0, img1, xy0, vo)
+    cxy, cok = lk_flow(img0.cpu(), img1.cpu(), xy0.cpu(), vo)
+    gxy, gok, mask = gxy.cpu(), gok.cpu(), mask.cpu()
+    agree = float((gok == cok)[mask].float().mean())
+    both = mask & gok & cok
+    close = float(((gxy - cxy).abs().amax(dim=1) <= 0.01)[both].float()
+                  .mean())
+    ms = device_ms(lambda: lk_flow(img0, img1, xy0, vo), runs=5, cold=False)
+    print(f"[15c LK flow] {xy0.shape[0]} keypoint rows ({int(mask.sum())} "
+          f"detected) of {IMG_W}x{IMG_H}, "
+          f"window {vo.flow_window}, {vo.flow_levels} levels, "
+          f"{vo.flow_iterations} iterations: card tracks {int(gok[mask].sum())}"
+          f", CPU {int(cok[mask].sum())}; status agrees on {agree:.4f} of "
+          f"the keypoints, xy1 within 0.01 px on {close:.4f} of the "
+          f"{int(both.sum())} both track (max |diff| "
+          f"{float((gxy - cxy).abs()[both].max()):.2e} px); {ms:.3f} ms on "
+          f"the card (5 calls queued)", flush=True)
+    if not (agree >= 0.99 and close >= 0.99):
+        fail("lk_flow on the card and on the CPU disagree")
+    for option in ("optical_flow_match", "lowtex_fallback"):
+        cfg_o = cfg.replace(vo=dataclasses.replace(vo, **{option: True}))
+        eng = VloamEngine(cfg_o, calib, chunk=PROFILE_FRAMES, device="cuda")
+
+        def push(k):
+            eng.push_polar(frames[k], images[k])
+
+        kernels.reset_launches()
+        prof = _profile(push, PROFILE_FRAMES)
+        host, syncs = _sync_free(push, range(2 * PROFILE_FRAMES, N_FRAMES))
+        outs = eng.finish()
+        launches = dict(kernels.LAUNCHES)
+        if outs.shape != (N_FRAMES, 33) or not np.isfinite(outs).all():
+            fail(f"{option}: outputs {outs.shape} not finite")
+        err = vloam_errors(unpack_vloam_outputs(outs, calib), poses, calib)
+        print(f"[15c VloamEngine {option}=True] {prof['launches']:.0f} kernel "
+              f"launches a frame (default path "
+              f"{default_stats['launches']:.0f}), device "
+              f"{prof['device_ms']:.2f} ms (default "
+              f"{default_stats['device_ms']:.2f}), wall {prof['wall_ms']:.2f}"
+              f" ms a frame under the profiler; host enqueue "
+              f"{host * 1e3 / (N_FRAMES - 2 * PROFILE_FRAMES):.2f} ms a frame "
+              f"(frames {2 * PROFILE_FRAMES}-{N_FRAMES - 1}); hand-kernel "
+              f"launches {launches}; max err vs GT LO {err['LO']:.4f} m, MO "
+              f"{err['MO']:.4f} m; VO ATE {err['VO']:.4f} m; min n32 "
+              f"{err['n32']}; host syncs {len(syncs)} {clocks()}", flush=True)
+        if syncs:
+            fail(f"{option}: the frame loop synchronized: {syncs[:3]}")
+        if not err["MO"] < 0.15:
+            fail(f"{option}: MO error {err['MO']} m >= 0.15 m")
+
+
+def _popen_cli(*args) -> subprocess.Popen:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-m", "vloam_tpu_torch", *args],
+                            cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def host_cli_viz_phase() -> None:
+    """15d: python -m vloam_tpu_torch run --synthetic 12 --mode combined
+    --engine host --viz DIR with no --device, and the same with
+    --optical-flow, as two subprocesses side by side: the debug PNGs, the
+    timing summary and the kernel launches each prints."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        t0 = time.perf_counter()
+        for name, extra in (("descriptors", []), ("flow", ["--optical-flow"])):
+            viz = Path(tmp) / name
+            runs[name] = (viz, _popen_cli(
+                "run", "--synthetic", "12", "--mode", "combined", "--engine",
+                "host", "--viz", str(viz), *extra))
+        results = {}
+        try:
+            for name, (viz, proc) in runs.items():
+                out, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    fail(f"--engine host --viz ({name}) exited "
+                         f"{proc.returncode}: {err[-3000:]}")
+                results[name] = (sorted(p.name for p in viz.glob("*.png")),
+                                 out)
+        finally:
+            for _, proc in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        dt = time.perf_counter() - t0
+    lines = []
+    for name, (pngs, out) in results.items():
+        got = [ln for ln in out.splitlines()
+               if ln.startswith(("kernel launches", "throughput", "MO "))]
+        launch = [json.loads(ln.split(": ", 1)[1]) for ln in got
+                  if ln.startswith("kernel launches")]
+        launch = launch[0] if launch else {}
+        has_summary = "timing summary (ms):" in out
+        lines.append(f"{name}: PNGs {pngs}; timing summary "
+                     + ("printed" if has_summary else "MISSING")
+                     + f"; {got}")
+        want = {"depth", "flow" if name == "flow" else "matches"}
+        if {p.split("_")[0] for p in pngs} != want:
+            fail(f"--viz ({name}) wrote {pngs}, want {sorted(want)} PNGs")
+        path = ["select_rings", "ring_min2", "ring_min1", "grid_probe",
+                "row_gather"] + (["zncc_describe"] if name != "flow" else [])
+        if not has_summary or not all(launch.get(k, 0) > 0 for k in path):
+            fail(f"--engine host ({name}) printed no timing summary or "
+                 f"launched no kernel of its path: {launch}")
+    print(f"[15d host engine CLI --viz] two subprocesses with no --device, "
+          f"{dt:.1f} s side by side: " + "; ".join(lines), flush=True)
+
+
 def main() -> None:
     card = device_phase()
     build_phase()
@@ -1498,11 +1738,16 @@ def main() -> None:
     probe, s2 = s2_phase(eng, frames[N_FRAMES - 1], beng, streams)
     del eng, beng
     s1_argmin2 = ring_variants_phase(err_argmin2)
-    profile_phase(cfg, cfg_v, frames, images, calib, streams)
+    stats13 = profile_phase(cfg, cfg_v, frames, images, calib, streams)
     host_cli_phase(frames, poses, calib)
     res_host = host_combined_phase(cfg_v, frames, images, poses, calib)
     host_resume_phase(cfg, frames, outs_gpu)
     host_loop_phase(cfg, frames, res_host)
+    host_frames = _host_frames(frames, images)
+    res_he = host_engine_phase(cfg_v, host_frames, poses, calib, res_host)
+    host_cpu_phase(cfg_v, host_frames, calib, res_he)
+    flow_phase(cfg_v, frames, images, poses, calib, stats13["VloamEngine"])
+    host_cli_viz_phase()
     # launches: each kernel's count over the run of the path that drives it,
     # with the counts set to 0 just before: the batch drive (phase 10), the
     # combined engine (phase 8) for K3, the ring-variants entry point (phase

@@ -1,7 +1,8 @@
 """The port's command line (python -m vloam_tpu_torch) over the checked-in
 KITTI-odometry-layout mini-fixture (tests/fixtures/kitti_mini), with
---device cpu, mirroring the --engine fused flows of tests/test_cli_kitti.py
-and holding their files to the JAX CLI's and to the fixture's goldens.
+--device cpu, mirroring the flows of tests/test_cli_kitti.py (both engines,
+--viz, --optical-flow) and holding their files to the JAX CLI's and to the
+fixture's goldens.
 
 Tolerances: the fixture goldens within 0.05 m (the reference's own bar);
 the JAX CLI's LO / MO within 2e-2 / 3e-2 m and, in combined mode, VO within
@@ -9,8 +10,9 @@ the JAX CLI's LO / MO within 2e-2 / 3e-2 m and, in combined mode, VO within
 engine associates with quantized distances, the port with exact ones); a
 resumed split run's relative MO pose within 0.05 m of the uninterrupted
 run's (tests/test_cli_kitti.py's bar), from a checkpoint of either package.
-The JAX CLI runs twice, in-process and once per module (LiDAR-only and
-combined); the cross-package resumes reuse its compiled chunks.
+The JAX CLI runs four times, in-process and once per module (each engine,
+LiDAR-only and combined); the cross-package resumes reuse its compiled
+chunks.
 """
 
 import dataclasses
@@ -268,15 +270,83 @@ def test_cli_eval(tmp_path, capsys):
     assert 0 <= m["ate_rmse_m"] < 0.5 and m["ate_max_m"] >= m["ate_rmse_m"]
 
 
+@pytest.fixture(scope="module")
+def jax_host_runs(tmp_path_factory):
+    """The JAX CLI's host engine on the fixture, LiDAR-only and combined
+    (the latter with --viz)."""
+    from vloam_tpu.cli import main as jax_main
+
+    out = tmp_path_factory.mktemp("jax_host")
+    for mode, extra in (("lidar-only", []),
+                        ("combined", ["--viz", str(out / "viz")])):
+        assert jax_main(BASE + ["--mode", mode, "--engine", "host", "--out",
+                                str(out / mode)] + extra) == 0
+    return out
+
+
+@pytest.mark.parametrize("mode", ["lidar-only", "combined"])
+def test_cli_host_engine(tmp_path, capsys, mode, jax_host_runs):
+    """--engine host on the fixture: the three streams (VO stays at the
+    start frame in LiDAR-only mode, as the reference's), per-frame progress
+    and the timing summary; each stream within the golden tolerances of the
+    JAX CLI's host engine, and of the fixture's golden trajectories."""
+    out = tmp_path / mode
+    extra = ["--viz", str(tmp_path / "viz")] if mode == "combined" else []
+    assert main(PORT + ["--mode", mode, "--engine", "host", "--out", str(out),
+                        "--verbose", "1"] + extra) == 0
+    printed = capsys.readouterr().out
+    assert sum(ln.startswith("frame ") for ln in printed.splitlines()) == 5
+    summary = json.loads(printed.split("timing summary (ms):", 1)[1].split(
+        "\n}", 1)[0] + "}")
+    stages = {"t_scanreg_ms", "t_lo_ms", "t_mo_ms", "t_frame_ms"}
+    if mode == "combined":
+        stages |= {"t_image_ms", "t_depth_ms", "t_vo_solve_ms"}
+    assert set(summary) == stages and summary["t_frame_ms"] > 0
+    suffix = "0" if mode == "combined" else "1"
+    tol = {"VO": 3e-2, "LO": 2e-2, "MO": 3e-2}
+    for which in ("VO", "LO", "MO"):
+        poses = _load_kitti_txt(out / f"{which}{suffix}.txt")
+        assert len(poses) == 5 and np.isfinite(poses).all()
+        np.testing.assert_allclose(poses[0], np.eye(4)[:3], atol=1e-5)
+        ref = _load_kitti_txt(jax_host_runs / mode / f"{which}{suffix}.txt")
+        assert _max_pos_diff(poses, ref) < tol[which], which
+    if mode == "lidar-only":
+        for which in ("LO1", "MO1"):
+            golden = _load_kitti_txt(FIXTURE / "golden" / f"{which}.txt")
+            fresh = _load_kitti_txt(out / f"{which}.txt")
+            assert _max_pos_diff(fresh, golden) < 0.05, which
+    else:
+        # --viz: the JAX CLI's debug PNGs, by name
+        names = sorted(p.name for p in (tmp_path / "viz").glob("*.png"))
+        assert names == sorted(p.name for p in (jax_host_runs / "viz").glob(
+            "*.png")) == ["depth_000001.png", "matches_000001.png"]
+
+
+def test_cli_viz_flow_mode(tmp_path):
+    """--viz --optical-flow on the host engine: flow-arrow and depth PNGs,
+    no match PNG (tests/test_cli_kitti.py's test_cli_viz_flow_mode)."""
+    viz = tmp_path / "viz"
+    assert main(PORT + ["--mode", "combined", "--engine", "host", "--out",
+                        str(tmp_path / "out"), "--viz", str(viz),
+                        "--optical-flow"]) == 0
+    names = sorted(p.name for p in viz.glob("*.png"))
+    assert names == ["depth_000001.png", "flow_000001.png"]
+    from PIL import Image
+
+    with Image.open(viz / "flow_000001.png") as im:
+        assert im.size == (320, 96) and im.mode == "RGB"
+    vo = _load_kitti_txt(tmp_path / "out" / "VO0.txt")
+    assert len(vo) == 5 and np.isfinite(vo).all()
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--engine", "host"], "Host layer, host-engine half"),
-    (["--viz", "viz"], "Host layer, host-engine half"),
-    (["--optical-flow"], "Slice 2's remaining vision options"),
     (["--mesh", "2"], "Distributed"),
-    (["--reference-exact"], "HDL-64")])
+    (["--reference-exact"], "HDL-64"),
+    (["--polar-ingest", "--engine", "host"], "only the fused engine")])
 def test_cli_refuses_what_is_not_ported(capsys, flags, item):
-    """Unported flags end with an argparse error naming the ROADMAP item
-    that will port them; no silent substitute."""
+    """Unported flags (and the host engine's polar ingest, which the
+    reference's host engine cannot read either) end with an argparse error
+    naming the reason; no silent substitute."""
     with pytest.raises(SystemExit) as e:
         main(PORT + ["--mode", "lidar-only"] + flags)
     assert e.value.code == 2

@@ -602,6 +602,23 @@ def test_entry_points_default_to_the_card():
         run_sequence_fused(cfg, calib, [], lidar_only=True, mesh=object())
     out = run_sequence_fused(cfg, calib, [], lidar_only=True, device="cpu")
     assert out["LO"].shape == (0, 3, 4)
+    # the host engine and its stages
+    from vloam_tpu_torch.lidar.mapping import LaserMapping
+    from vloam_tpu_torch.lidar.odometry import LaserOdometry
+    from vloam_tpu_torch.pipeline import VloamPipeline, run_sequence
+    from vloam_tpu_torch.vision.vo import VisualOdometry
+
+    calib.K = np.diag([100.0, 100.0, 1.0])
+    calib.P_velo_to_img = np.eye(3, 4)
+    for make in (lambda **kw: run_sequence(cfg, calib, [], **kw),
+                 lambda **kw: VloamPipeline(cfg, calib, **kw),
+                 lambda **kw: LaserOdometry(cfg.lo, **kw),
+                 lambda **kw: LaserMapping(cfg.mapping, **kw),
+                 lambda **kw: VisualOdometry(cfg.vo, calib.K,
+                                             calib.P_velo_to_img, **kw)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+        assert make(device="cpu") is not None
     proc = subprocess.run(
         [sys.executable, "-m", "vloam_tpu_torch", "run", "--synthetic", "2",
          "--sensor", "tiny"], cwd=REPO, capture_output=True, text=True,
@@ -616,7 +633,10 @@ def test_port_host_modules_never_import_jax():
             "vloam_tpu_torch.runtime.native_io, vloam_tpu_torch.data.kitti, "
             "vloam_tpu_torch.eval.kitti_metrics, "
             "vloam_tpu_torch.backend.loop_closure, "
-            "vloam_tpu_torch.parallel.pose_graph; "
+            "vloam_tpu_torch.parallel.pose_graph, "
+            "vloam_tpu_torch.lidar.odometry, vloam_tpu_torch.lidar.mapping, "
+            "vloam_tpu_torch.vision.vo, vloam_tpu_torch.vision.viz, "
+            "vloam_tpu_torch.vision.optical_flow; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vloam_tpu', 'PIL')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -60,6 +60,9 @@ needs JAX.)
 - The batch engine on the card against the same engine on the CPU, the
   tolerances of the single engine's test.
 - python -m vloam_tpu_torch run with no --device runs on the card.
+- The host engine (run_sequence, VisualOdometry) with no device runs on the
+  card, launches the kernels and agrees with its CPU run; lk_flow on the
+  card agrees with the CPU on 99% of the keypoints.
 """
 
 import numpy as np
@@ -598,3 +601,77 @@ def test_cli_runs_on_the_card_by_default(cuda):
     launches = json.loads(line[0][len("kernel launches: "):])
     assert launches["select_rings"] == 4 and launches["grid_probe"] == 4
     assert launches["ring_min2"] == launches["ring_min1"] == 8
+
+
+def _host_drive(cfg, n=4):
+    """A small xyz camera + LiDAR drive for the host engine, and its
+    calibration."""
+    from vloam_tpu_torch.data import synthetic
+
+    calib, _ = _vloam_drive(n=0, w=cfg.vo.img_width, h=cfg.vo.img_height)
+    scene = synthetic.urban_scene(2)
+    velo_T_cam = calib.imu_T_cam0
+    poses = synthetic.drive_trajectory(n, speed=1.0, yaw_rate=0.015)
+    frames = [{"points": synthetic.simulate_scan(
+                   scene, T, n_scans=cfg.lidar.n_scans, n_azimuth=900,
+                   seed=k),
+               "image": synthetic.render_camera(
+                   scene, T @ velo_T_cam, calib.K, cfg.vo.img_width,
+                   cfg.vo.img_height)}
+              for k, T in enumerate(poses)]
+    return calib, frames
+
+
+def test_host_engine_runs_on_the_card_by_default(cuda):
+    """run_sequence and VisualOdometry with no device run on the card: the
+    host engine launches six of the kernels on every frame after the first
+    (K3 on every frame), and its LO / MO trajectories agree with the same
+    run on the CPU within the card-vs-CPU tolerances (LO 2e-2 m, MO 3e-2 m;
+    the 16-ring drive's VO is too weakly constrained to compare, so it must
+    be finite: chip_smoke.py compares VO at full width)."""
+    from vloam_tpu_torch.config import tiny_test_profile
+    from vloam_tpu_torch.pipeline import run_sequence
+    from vloam_tpu_torch.vision.vo import VisualOdometry
+
+    cfg = tiny_test_profile().replace(detach_VO_LO=False)
+    calib, frames = _host_drive(cfg)
+    vo = VisualOdometry(cfg.vo, calib.K, calib.P_velo_to_img)
+    assert vo.device.type == "cuda" and vo.Kinv.device.type == "cuda"
+    kernels.reset_launches()
+    gpu = run_sequence(cfg, calib, frames)
+    n = len(frames)
+    # LO solves from frame 1 on: 2 association rounds (K2 surf, ring_min1
+    # corner); mapping's probe and 2 inserts, and K3, on every frame
+    assert kernels.LAUNCHES == {"select_rings": n, "ring_min2": 2 * (n - 1),
+                                "ring_min1": 2 * (n - 1),
+                                "row_gather": 2 * n, "grid_probe": n,
+                                "zncc_describe": n, "ring_argmin2": 0}
+    cpu = run_sequence(cfg, calib, frames, device="cpu")
+    assert np.isfinite(gpu["VO"]).all()
+    for which, tol in (("LO", 2e-2), ("MO", 3e-2)):
+        np.testing.assert_allclose(gpu[which], cpu[which], atol=tol,
+                                   err_msg=which)
+
+
+def test_lk_flow_on_card_matches_cpu(cuda):
+    """lk_flow on the card against the CPU on a rendered frame pair (320 x
+    96, the keypoints of the first): status agrees on at least 99% of the
+    keypoints and xy1 within 0.01 px on at least 99% of those both track
+    (the window sums add in another order on the card)."""
+    from vloam_tpu_torch.config import tiny_test_profile
+    from vloam_tpu_torch.vision.features import detect_keypoints
+    from vloam_tpu_torch.vision.optical_flow import lk_flow
+
+    cfg = tiny_test_profile()
+    _, frames = _host_drive(cfg, n=2)
+    imgs = [torch.from_numpy(f["image"]) for f in frames]
+    xy0, _, mask = detect_keypoints(imgs[0], cfg.vo)
+    cpu_xy, cpu_ok = lk_flow(imgs[0], imgs[1], xy0, cfg.vo)
+    gpu_xy, gpu_ok = lk_flow(imgs[0].to(cuda), imgs[1].to(cuda),
+                             xy0.to(cuda), cfg.vo)
+    gpu_xy, gpu_ok = gpu_xy.cpu(), gpu_ok.cpu()
+    assert cpu_ok[mask].sum() > 20
+    assert (gpu_ok == cpu_ok)[mask].float().mean() >= 0.99
+    both = mask & gpu_ok & cpu_ok
+    close = (gpu_xy - cpu_xy).abs().amax(dim=1) <= 0.01
+    assert close[both].float().mean() >= 0.99

@@ -17,6 +17,8 @@ seeded from the same frame's VO).
 - the engine's host side: off-size images are fitted, the polar FOV wedge
   is checked, options and arguments that are not ported raise, and the
   new modules import neither jax nor the JAX package.
+The four VO options CLAHE, bucket NMS, LK flow matching and the low-texture
+fallback are held to the JAX engine in tests/test_torch_optical_flow.py.
 """
 
 import subprocess
@@ -187,9 +189,9 @@ def test_engine_rejects_what_is_not_ported(xyz_drive):
     # the LiDAR-only engine refuses the mesh the same way
     with pytest.raises(NotImplementedError, match="mesh"):
         LoamEngine(CFG, mesh=object(), device="cpu")
-    for option in ({"clahe": True}, {"keypoint_nms": True},
-                   {"optical_flow_match": True}, {"lowtex_fallback": True},
-                   {"detector": "orb"}, {"descriptor": "orb"},
+    # CLAHE, bucket NMS, LK flow and the low-texture fallback are ported
+    # (tests/test_torch_optical_flow.py)
+    for option in ({"detector": "orb"}, {"descriptor": "orb"},
                    {"matcher": "flann"}):
         cfg = CFG.replace(vo=dataclasses.replace(CFG.vo, **option))
         with pytest.raises(NotImplementedError, match=next(iter(option))):
@@ -213,6 +215,7 @@ def test_vision_modules_never_import_jax():
     code = ("import sys, vloam_tpu_torch.vloam_step, vloam_tpu_torch.convert, "
             "vloam_tpu_torch.vision.features, vloam_tpu_torch.vision.vo, "
             "vloam_tpu_torch.vision.depth_map, "
+            "vloam_tpu_torch.vision.optical_flow, "
             "vloam_tpu_torch.fusion.frame_chain; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vloam_tpu')); assert not bad, bad")

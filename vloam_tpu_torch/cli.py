@@ -1,10 +1,12 @@
-"""Command line of the PyTorch engines (port of the fused half of
-vloam_tpu/cli.py).
+"""Command line of the PyTorch engines (port of vloam_tpu/cli.py).
 
 Sequences are driven from KITTI files (or the built-in synthetic world)
-through the fused engines, trajectories are written in the reference's
+through the fused engines (--engine fused, the default) or the per-stage
+host engine (--engine host: per-frame progress, a per-stage timing summary,
+--viz debug PNGs), trajectories are written in the reference's
 results/<run>/{VO,LO,MO}{0,1}.txt layout, and progress goes to stdout.
-Everything runs on the card unless --device cpu is given.
+--optical-flow matches by LK flow in either engine. Everything runs on the
+card unless --device cpu is given.
 
 Usage:
   python -m vloam_tpu_torch run --synthetic 20 --out results/synth
@@ -12,12 +14,12 @@ Usage:
       --mode combined
   python -m vloam_tpu_torch run --raw-root /data/kitti_raw \\
       --date 2011_09_26 --drive 0001 --device cpu
+  python -m vloam_tpu_torch run --synthetic 12 --mode combined \\
+      --engine host --viz results/viz --optical-flow
   python -m vloam_tpu_torch eval --gt gt.txt --pred results/synth/MO1.txt
 
 Not ported yet, refused with an error that names the ROADMAP item (queue 1)
-that ports them: --engine host and --viz ("Host layer, host-engine half"),
---optical-flow ("Slice 2's remaining vision options"), --mesh
-("Distributed").
+that ports it: --mesh ("Distributed").
 """
 
 from __future__ import annotations
@@ -29,9 +31,6 @@ import sys
 import numpy as np
 
 _NOT_PORTED = {
-    "engine": ("--engine host", "Host layer, host-engine half"),
-    "viz": ("--viz", "Host layer, host-engine half"),
-    "optical_flow": ("--optical-flow", "Slice 2's remaining vision options"),
     "mesh": ("--mesh", "Distributed"),
 }
 
@@ -58,8 +57,10 @@ def _add_run(sub):
                    help="cuda (default): the hand-written kernels on the "
                         "card; cpu: their plain PyTorch versions")
     p.add_argument("--engine", choices=["fused", "host"], default="fused",
-                   help="fused: device-resident chunks (the only engine "
-                        "ported; host is not)")
+                   help="fused: device-resident chunks, one download per "
+                        "sequence; host: the per-stage classes, one host "
+                        "read per stage and frame (debuggable, timed per "
+                        "stage)")
     p.add_argument("--chunk", type=int, default=8)
     p.add_argument("--polar-ingest", action="store_true",
                    help="native bin->range-image projection + uint16 upload "
@@ -70,19 +71,24 @@ def _add_run(sub):
                         "into this directory")
     p.add_argument("--verbose", type=int, default=1)
     p.add_argument("--viz", default=None, metavar="DIR",
-                   help="debug PNGs (host engine; not ported)")
+                   help="debug PNGs (matches or flow arrows, and depth) "
+                        "every 10 frames (host engine only)")
     p.add_argument("--optical-flow", action="store_true",
-                   help="LK optical-flow matching (not ported)")
+                   help="match keypoints by pyramidal LK optical flow "
+                        "instead of descriptors")
     p.add_argument("--init-state", default=None, metavar="NPZ",
                    help="restore full device state (map + pose chain) from "
-                        "a checkpoint before the run (either package's)")
+                        "a checkpoint before the run (either package's; "
+                        "fused engine only, the host engine ignores it)")
     p.add_argument("--save-state", default=None, metavar="NPZ",
                    help="save full device state after the run (resume long "
-                        "drives / reuse maps in later runs)")
+                        "drives / reuse maps in later runs; fused engine "
+                        "only, the host engine ignores it)")
     p.add_argument("--save-map", default=None, metavar="DIR",
                    help="export the accumulated map every map_pub_number "
                         "frames as npz under DIR (reference /laser_cloud_map "
-                        "publisher analogue)")
+                        "publisher analogue; fused engine only, the host "
+                        "engine ignores it)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="distributed mapping over N devices (not ported)")
     p.add_argument("--reference-exact", action="store_true",
@@ -110,10 +116,13 @@ def _add_eval(sub):
 
 def _refuse_unported(ap, args) -> None:
     for attr, (flag, item) in _NOT_PORTED.items():
-        value = getattr(args, attr)
-        if value and not (attr == "engine" and value == "fused"):
+        if getattr(args, attr):
             ap.error(f"{flag} is not ported to vloam_tpu_torch yet (ROADMAP "
                      f"queue 1, \"{item}\"); run it with python -m vloam_tpu")
+    if args.polar_ingest and args.engine == "host":
+        ap.error("--polar-ingest feeds range images, which only the fused "
+                 "engine reads; the host engine reads xyz points (drop "
+                 "--polar-ingest or use --engine fused)")
 
 
 def _fit_cfg_to_images(cfg, ds, start_frame, mode):
@@ -279,7 +288,8 @@ def main(argv=None):
                  "run the plain PyTorch versions on the CPU")
     from .config import (HDL32, VLP16, PipelineConfig, kitti_hdl64,
                          reference_exact, tiny_test_profile)
-    from .pipeline import run_sequence_fused
+    from .pipeline import run_sequence, run_sequence_fused
+    from .runtime.profiling import summarize_timings
 
     if args.reference_exact:
         if args.sensor != "hdl64":
@@ -295,6 +305,11 @@ def main(argv=None):
     cfg = cfg.replace(
         detach_VO_LO=(args.mode != "combined"), verbose_level=args.verbose
     )
+    if args.optical_flow:
+        import dataclasses
+
+        cfg = cfg.replace(vo=dataclasses.replace(cfg.vo,
+                                                 optical_flow_match=True))
 
     gt_poses = None
     if args.synthetic:
@@ -332,6 +347,13 @@ def main(argv=None):
             for f in frame_iter
         )
 
+    def progress(k, info):
+        if args.verbose:
+            print(f"frame {k}: {info['t_frame_ms']:.1f} ms "
+                  f"(scanreg {info.get('t_scanreg_ms', 0):.1f}, "
+                  f"lo {info.get('t_lo_ms', 0):.1f}, "
+                  f"mo {info.get('t_mo_ms', 0):.1f})", flush=True)
+
     from . import kernels
 
     kernels.reset_launches()
@@ -342,19 +364,25 @@ def main(argv=None):
         ctx = device_trace(args.profile)
         ctx.__enter__()
     try:
-        result = run_sequence_fused(cfg, calib, frame_iter,
-                                    out_dir=args.out, chunk=args.chunk,
-                                    lidar_only=(args.mode == "lidar-only"),
-                                    verbose=args.verbose,
-                                    save_map=args.save_map,
-                                    init_state=args.init_state,
-                                    save_state_path=args.save_state,
-                                    device=args.device)
+        if args.engine == "fused":
+            result = run_sequence_fused(
+                cfg, calib, frame_iter, out_dir=args.out, chunk=args.chunk,
+                lidar_only=(args.mode == "lidar-only"), verbose=args.verbose,
+                save_map=args.save_map, init_state=args.init_state,
+                save_state_path=args.save_state, device=args.device)
+        else:
+            result = run_sequence(cfg, calib, frame_iter, out_dir=args.out,
+                                  progress=progress, viz_dir=args.viz,
+                                  device=args.device)
     finally:
         if ctx is not None:
             ctx.__exit__(None, None, None)
 
-    print(f"throughput: {result['fps']:.1f} frames/s on {args.device}")
+    if "timings" in result:
+        print("timing summary (ms):",
+              json.dumps(summarize_timings(result["timings"]), indent=2))
+    if "fps" in result:
+        print(f"throughput: {result['fps']:.1f} frames/s on {args.device}")
     if args.verbose and args.device == "cuda":
         print(f"kernel launches: {json.dumps(kernels.LAUNCHES)}")
     if args.loop_close and "MO" in result and len(result["MO"]) > 2:

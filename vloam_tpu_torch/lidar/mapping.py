@@ -6,9 +6,10 @@ structure here, the hashed cell-slab map (gridmap.py). The line test uses
 the closed-form 3x3 eigensolver, the plane fit a 3x3 normal-equation solve
 by adjugate, and the pose refinement the shared Huber-IRLS LM.
 
-Nothing in this module reads a device value back to the host: the "enough
-map" gate and the recentering evict are ``torch.where`` selects over
-results computed unconditionally.
+Nothing in solve_mapping reads a device value back to the host: the
+"enough map" gate and the recentering evict are ``torch.where`` selects over
+results computed unconditionally. LaserMapping, the host engine's stage,
+reads the refined pose and the stats back once a frame, as the reference's.
 
 State transform chain (reference :140-144, :185-195):
   q_w_curr = q_wmap_wodom * q_wodom_curr (prediction), refined by the solve;
@@ -19,14 +20,18 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.spatial.transform import Rotation
 
 from ..geometry import so3
 from ..solver.eig3 import eigvals_sym3, principal_eigenvector
 from ..solver.lm import ResidualFamily, lm_solve
 from .gridmap import (FeatureGrid, grid_create, grid_evict, grid_export,
                       grid_gather_pair, grid_insert, knn_among_planar)
+from .types import FeatureCloud
+from .voxel import voxel_downsample
 
 _EPS = 1e-9
 
@@ -258,3 +263,64 @@ def export_map_points(grid_map: GridMap, max_points: int = 1 << 20):
     laser_mapping.cpp:778-793)."""
     return (grid_export(grid_map.corner, max_points),
             grid_export(grid_map.surf, max_points))
+
+
+class LaserMapping:
+    """Host-side mapping stage (reference LaserMapping input / solve /
+    publish) for the host engine: voxel_downsample of both stacks and one
+    solve_mapping per frame on `device`, the refined pose and the stats
+    read back, the odom -> map offset kept on the host in float64. device:
+    the card by default; "cpu" runs the kernels' plain versions."""
+
+    def __init__(self, cfg, device="cuda"):
+        from .loam_step import engine_device
+
+        self.cfg = cfg
+        self.device = engine_device(device)
+        self.map = GridMap.create(cfg, self.device)
+        self.q_wmap_wodom = np.array([0.0, 0.0, 0.0, 1.0])
+        self.t_wmap_wodom = np.zeros(3)
+        self.q_w = np.array([0.0, 0.0, 0.0, 1.0])
+        self.t_w = np.zeros(3)
+        self.frame_count = 0
+        self.last_stats = {}
+
+    def step(self, corner_cloud: FeatureCloud, surf_cloud: FeatureCloud,
+             q_wodom, t_wodom, skip_frame: bool = False) -> dict:
+        """corner_cloud / surf_cloud: the frame's less-sharp / less-flat
+        features in the sensor frame (reference input(), :167-196);
+        (q_wodom, t_wodom): its LO world pose."""
+        r_off = Rotation.from_quat(self.q_wmap_wodom)
+        q_pred = (r_off * Rotation.from_quat(q_wodom)).as_quat()
+        t_pred = self.t_wmap_wodom + r_off.apply(t_wodom)
+        if skip_frame:
+            # high-frequency propagation only (reference :186-190, :742-756)
+            return {"q_w": q_pred, "t_w": t_pred, "skip": True}
+
+        # voxel-downsample the stacks (reference :432-440)
+        cfg = self.cfg
+        c_xyz, _, _, c_m = voxel_downsample(
+            corner_cloud.xyz, corner_cloud.mask, cfg.line_resolution,
+            cfg.corner_stack_cap)
+        s_xyz, _, _, s_m = voxel_downsample(
+            surf_cloud.xyz, surf_cloud.mask, cfg.plane_resolution,
+            cfg.surf_stack_cap)
+
+        def dev(x):
+            return torch.tensor(np.asarray(x), dtype=torch.float32,
+                                device=self.device)
+
+        self.map, q_w, t_w, stats = solve_mapping(
+            self.map, c_xyz, c_m, s_xyz, s_m, dev(q_pred), dev(t_pred), cfg)
+        self.q_w = q_w.cpu().numpy().astype(np.float64)
+        self.q_w /= np.linalg.norm(self.q_w)
+        self.t_w = t_w.cpu().numpy().astype(np.float64)
+        # transformUpdate (reference :140-144)
+        r_off = Rotation.from_quat(self.q_w) * Rotation.from_quat(
+            q_wodom).inv()
+        self.q_wmap_wodom = r_off.as_quat()
+        self.t_wmap_wodom = self.t_w - r_off.apply(t_wodom)
+        self.frame_count += 1
+        self.last_stats = {k: int(v) for k, v in stats.items()}
+        return {"q_w": self.q_w, "t_w": self.t_w, "skip": False,
+                **self.last_stats}

@@ -8,12 +8,19 @@ Correspondences come from ring_assoc.ring_slab_assoc, whose per-ring
 min-2 reduction is the hand-written kernel K2 on CUDA. The (q, t)
 parameters transform a current-frame point into the last frame:
 lp = R(q) p + t (TransformToStart, :149-167).
+
+LaserOdometry is the host engine's LO stage: one solve_lo per frame, the
+pose read back and accumulated on the host in float64.
 """
 
 from __future__ import annotations
 
+import logging
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy.spatial.transform import Rotation
 
 from ..geometry import so3
 from ..solver.lm import ResidualFamily, lm_solve
@@ -176,3 +183,68 @@ def solve_lo(sharp: FeatureCloud, flat: FeatureCloud, corner_last: RingSlab,
                      huber_delta=cfg.huber_delta)
     q, t = _unpack(x)
     return q, t, n_c, n_s
+
+
+class LaserOdometry:
+    """Host-side frame chain of the LO stage (reference LaserOdometry,
+    laser_odometry.h:96-146): one solve_lo per frame on `device`, its pose
+    and correspondence counts read back, and the world pose accumulated on
+    the host in float64 (no drift over thousands of frames). device: the
+    card by default; "cpu" runs the kernels' plain versions."""
+
+    def __init__(self, cfg, device="cuda"):
+        from .loam_step import engine_device
+
+        self.cfg = cfg
+        self.device = engine_device(device)
+        self.initialized = False
+        self.corner_last: RingSlab | None = None
+        self.surf_last: RingSlab | None = None
+        self.q_w = np.array([0.0, 0.0, 0.0, 1.0])
+        self.t_w = np.zeros(3)
+        self.q_f2f = np.array([0.0, 0.0, 0.0, 1.0])
+        self.t_f2f = np.zeros(3)
+        self.frame_count = 0
+        self.n_corner = 0
+        self.n_surf = 0
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.tensor(np.asarray(x), dtype=torch.float32,
+                            device=self.device)
+
+    def step(self, feats, prior_q=None, prior_t=None) -> dict:
+        """Process one frame's features (ScanFeatures on the device).
+        prior_(q, t): optional VO seed (reference :223-236, used when
+        detach_VO_LO is false)."""
+        if not self.initialized:
+            self.initialized = True
+        else:
+            if prior_q is not None:
+                q0, t0 = self._tensor(prior_q), self._tensor(prior_t)
+            else:
+                q0, t0 = self._tensor(self.q_f2f), self._tensor(self.t_f2f)
+            q, t, n_c, n_s = solve_lo(feats.sharp, feats.flat,
+                                      self.corner_last, self.surf_last,
+                                      q0, t0, self.cfg)
+            q = q.cpu().numpy().astype(np.float64)
+            t = t.cpu().numpy().astype(np.float64)
+            self.n_corner, self.n_surf = int(n_c), int(n_s)
+            if self.n_corner + self.n_surf < self.cfg.min_correspondences:
+                logging.getLogger("vloam_tpu_torch").warning(
+                    "less correspondence! %d corner + %d surf < %d at "
+                    "frame %d (reference laser_odometry.cpp:452-455)",
+                    self.n_corner, self.n_surf,
+                    self.cfg.min_correspondences, self.frame_count)
+            self.q_f2f, self.t_f2f = q, t
+            # world accumulation (reference :477-478)
+            rw = Rotation.from_quat(self.q_w)
+            self.t_w = self.t_w + rw.apply(t)
+            self.q_w = (rw * Rotation.from_quat(q)).as_quat()
+        # swap the feature clouds into "last" (reference :511-526)
+        self.corner_last = feats.less_sharp_slab
+        self.surf_last = feats.less_flat_slab
+        self.frame_count += 1
+        skip_frame = ((self.frame_count - 1)
+                      % self.cfg.mapping_skip_frame) != 0
+        return {"q_f2f": self.q_f2f, "t_f2f": self.t_f2f, "q_w": self.q_w,
+                "t_w": self.t_w, "skip_frame": skip_frame}

@@ -8,12 +8,15 @@ vloam_tpu/vision/features.py, the default path; reference image_util.cpp).
   hand-written kernel K3 (kernels/csrc/zncc_describe.cu), on the CPU its
   plain version zncc_describe_plain,
 - match_descriptors: one [K0, K1] similarity product, nearest and second
-  nearest per row, ratio test (KNN) or best match (NN).
+  nearest per row, ratio test (KNN) or best match (NN),
+- clahe: contrast-limited adaptive histogram equalization before detection,
+- bucket_nms: at most so many keypoints per image bucket, then a global cap.
 
 Every top-k keeps JAX's tie order (equal scores: lower index first): a
-stable sort for the keypoints, an explicit first-index argmin for the
-matcher. The other detectors, ORB descriptors, the FLANN matcher, CLAHE and
-bucket NMS are not ported; their options raise NotImplementedError.
+stable sort for the keypoints and for the NMS ranking, an explicit
+first-index argmin for the matcher. The other detectors, ORB descriptors and
+the FLANN matcher are not ported; their options raise NotImplementedError
+(check_vo_options refuses them up front).
 
 Images are float32 [H, W] in [0, 1].
 """
@@ -26,6 +29,16 @@ import torch.nn.functional as F
 from .. import kernels
 from ..lidar.ring_assoc import first_argmin
 from ..lidar.voxel import blocked_cumsum
+
+
+def check_vo_options(vo) -> None:
+    """Raise NotImplementedError for a VO option the port does not run."""
+    for name, value in (("detector", "shi_tomasi"), ("descriptor", "zncc"),
+                        ("matcher", "bf")):
+        if getattr(vo, name) != value:
+            raise NotImplementedError(
+                f"vo.{name}={getattr(vo, name)!r} is not ported (only "
+                f"{value!r})")
 
 
 def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -74,6 +87,103 @@ def _box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
     h = cs[..., size:] - cs[..., :-size]
     cs2 = blocked_cumsum(_edge_pad(h, -2, pad + 1, pad), img.dim() - 2)
     return cs2[..., size:, :] - cs2[..., :-size, :]
+
+
+def clahe(img: torch.Tensor, clip_limit: float = 2.0, tiles: tuple = (8, 8),
+          n_bins: int = 256) -> torch.Tensor:
+    """Contrast-limited adaptive histogram equalization (the reference's
+    cv::createCLAHE(2.0) preprocessing, visual_odometry.cpp:31,97-100):
+    per-tile histograms, clipped and redistributed, CDF lookup tables, and
+    a bilinear blend of the 4 surrounding tiles' tables per pixel."""
+    h, w = img.shape
+    ty, tx = tiles
+    th = -(-h // ty)
+    tw = -(-w // tx)
+    dev = img.device
+    pad_img = _edge_pad(_edge_pad(img, 0, 0, ty * th - h), 1, 0, tx * tw - w)
+    bins = torch.clamp((pad_img * (n_bins - 1)).to(torch.int64), 0,
+                       n_bins - 1)
+    tile_r = torch.arange(ty * th, device=dev) // th
+    tile_c = torch.arange(tx * tw, device=dev) // tw
+    tid = tile_r[:, None] * tx + tile_c[None, :]
+    flat_idx = (tid * n_bins + bins).reshape(-1)
+    # Every addend is 1.0 and every count stays below 2^24, so the float32
+    # sums are exact in any order: the atomics of index_add_ on CUDA give
+    # the same histogram on every run.
+    hist = torch.zeros(ty * tx * n_bins, dtype=torch.float32,
+                       device=dev).index_add_(
+        0, flat_idx, torch.ones_like(flat_idx, dtype=torch.float32))
+    hist = hist.reshape(ty * tx, n_bins)
+    n_pix = th * tw
+    clip = clip_limit * n_pix / n_bins
+    excess = torch.sum(torch.clamp(hist - clip, min=0.0), dim=1,
+                       keepdim=True)
+    hist = torch.clamp(hist, max=clip) + excess / n_bins
+    cdf = blocked_cumsum(hist, 1)
+    cdf_min = cdf[:, :1]
+    lut = ((cdf - cdf_min) / torch.clamp(n_pix - cdf_min, min=1.0)).reshape(
+        ty, tx, n_bins)
+
+    # bilinear interpolation between tile centres
+    yy = torch.arange(h, dtype=torch.float32, device=dev)
+    xx = torch.arange(w, dtype=torch.float32, device=dev)
+    fy = torch.clamp((yy - th / 2.0) / th, 0.0, ty - 1.0)
+    fx = torch.clamp((xx - tw / 2.0) / tw, 0.0, tx - 1.0)
+    y0 = (torch.clamp(torch.floor(fy).to(torch.int64), 0, ty - 2) if ty > 1
+          else torch.zeros_like(fy, dtype=torch.int64))
+    x0 = (torch.clamp(torch.floor(fx).to(torch.int64), 0, tx - 2) if tx > 1
+          else torch.zeros_like(fx, dtype=torch.int64))
+    wy = (fy - y0) if ty > 1 else torch.zeros_like(fy)
+    wx = (fx - x0) if tx > 1 else torch.zeros_like(fx)
+    b = bins[:h, :w]
+    y0g = y0[:, None]
+    x0g = x0[None, :]
+    y1g = torch.clamp(y0g + 1, max=ty - 1)
+    x1g = torch.clamp(x0g + 1, max=tx - 1)
+    v00 = lut[y0g, x0g, b]
+    v01 = lut[y0g, x1g, b]
+    v10 = lut[y1g, x0g, b]
+    v11 = lut[y1g, x1g, b]
+    wyg = wy[:, None]
+    wxg = wx[None, :]
+    out = (v00 * (1 - wyg) * (1 - wxg) + v01 * (1 - wyg) * wxg
+           + v10 * wyg * (1 - wxg) + v11 * wyg * wxg)
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def bucket_nms(xy: torch.Tensor, score: torch.Tensor, mask: torch.Tensor,
+               img_w: int, img_h: int, bucket_w: int = 100,
+               bucket_h: int = 100, max_total: int = 400) -> torch.Tensor:
+    """Bucketed keypoint NMS (reference keyPointsNMS, image_util.cpp:
+    100-150): keep the max_total // n_buckets strongest keypoints of each
+    bucket_w x bucket_h cell, then the strongest max_total overall (ties
+    at the last kept score all stay). Returns the updated mask."""
+    nx = -(-img_w // bucket_w)
+    ny = -(-img_h // bucket_h)
+    nb = nx * ny
+    per_bucket = max(1, max_total // nb)
+    bid = ((xy[:, 0] // bucket_w).to(torch.int64)
+           + nx * (xy[:, 1] // bucket_h).to(torch.int64))
+    bid = torch.where(mask, bid, nb)
+    k = xy.shape[0]
+    # rank within a bucket by descending score: the reference's lexsort
+    # by (bucket, -score) as two stable sorts, the minor key first
+    by_score = torch.sort(score, descending=True, stable=True)[1]
+    order = by_score[torch.sort(bid[by_score], stable=True)[1]]
+    bid_s = bid[order]
+    starts = torch.searchsorted(bid_s, torch.arange(nb + 1,
+                                                    device=bid.device))
+    # the reference looks masked rows (bid_s == nb) up at bucket nb - 1;
+    # keep_sorted drops them either way
+    rank = (torch.arange(k, device=bid.device)
+            - starts[torch.clamp(bid_s, max=nb - 1)])
+    keep_sorted = (rank < per_bucket) & (bid_s < nb)
+    keep = torch.empty_like(keep_sorted).scatter_(0, order, keep_sorted)
+    keep = keep & mask
+    # global cap: the max_total-th largest kept score
+    s = torch.where(keep, score, -torch.inf)
+    kth = torch.topk(s, min(max_total, k)).values[-1]
+    return keep & (s >= kth)
 
 
 def min_eig_response(img: torch.Tensor, block: int) -> torch.Tensor:

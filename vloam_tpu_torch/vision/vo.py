@@ -12,16 +12,22 @@ of ceres_cost_function.h):
 The reference truncates keypoint coordinates to int before the depth
 lookup and the residuals (:283-307); cfg.subpixel keeps the subpixel
 coordinates in the residuals (the depth lookup truncates either way).
+
+VisualOdometry is the host engine's VO stage around solve_vo: features or
+LK flow per image, the depth grid per scan, one solve a frame read back.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..geometry import so3
 from ..solver.lm import ResidualFamily, lm_solve
-from .depth_map import DepthGrid, fma_matvec, query_depth
+from . import features
+from .depth_map import DepthGrid, build_depth_grid, fma_matvec, query_depth
+from .optical_flow import lk_flow
 
 
 def vo_residual(x: torch.Tensor, X0, x1_bar, b0, b1, sel32):
@@ -103,3 +109,104 @@ def solve_vo(prev_uv: torch.Tensor, curr_uv: torch.Tensor,
         iterations=cfg.max_iterations, huber_delta=cfg.huber_delta)
     return (x[:3], x[3:], torch.sum(m32.to(torch.int32)),
             torch.sum(m22.to(torch.int32)))
+
+
+class VisualOdometry:
+    """Host-side VO stage with the reference's 2-slot ring buffer
+    (visual_odometry.h:86-90) for the host engine: detect / describe / match
+    (or LK flow), depth grid and solve on `device`, the pose and the match
+    counts read back (VisualOdometry::{processImage, processPointCloud,
+    solveNlsAll}). K [3, 3] is inverted once, here, on the host. device: the
+    card by default; "cpu" runs the kernels' plain versions."""
+
+    def __init__(self, cfg, K, P_velo_to_img, device="cuda"):
+        from ..lidar.loam_step import engine_device
+
+        features.check_vo_options(cfg)
+        self.cfg = cfg
+        self.device = engine_device(device)
+
+        def dev(x):
+            return torch.tensor(np.asarray(x), dtype=torch.float32,
+                                device=self.device)
+
+        self.Kinv = dev(np.linalg.inv(np.asarray(K, np.float32)))
+        self.P_velo_to_img = dev(P_velo_to_img)
+        self.count = -1
+        self.i = 0
+        self.kp = [None, None]
+        self.desc = [None, None]
+        self.kp_mask = [None, None]
+        self.grids = [None, None]
+        self.images = [None, None]
+        self.angles = np.zeros(3)
+        self.t = np.zeros(3)
+        self.stats = {}
+
+    def reset(self):
+        self.count += 1
+        self.i = self.count % 2
+
+    def process_image(self, img):
+        """img: [H, W] float32 in [0, 1] (reference processImage :92-130)."""
+        i = self.i
+        im = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        if self.cfg.clahe:
+            im = features.clahe(im)
+        self.images[i] = im
+        xy, score, mask = features.detect_keypoints(im, self.cfg)
+        if self.cfg.keypoint_nms:
+            mask = features.bucket_nms(
+                xy, score, mask, self.cfg.img_width, self.cfg.img_height,
+                self.cfg.nms_bucket, self.cfg.nms_bucket,
+                self.cfg.nms_max_total)
+        self.kp[i] = xy
+        self.kp_mask[i] = mask
+        if not self.cfg.optical_flow_match:
+            self.desc[i] = features.describe_keypoints(im, xy, self.cfg)
+
+    def process_point_cloud(self, pts_velo, mask):
+        """Build the frame's depth grid from velodyne points [N, 3] and
+        their mask [N] (host arrays or tensors on the device; reference
+        processPointCloud :157-186)."""
+        self.grids[self.i] = build_depth_grid(
+            torch.as_tensor(pts_velo, dtype=torch.float32,
+                            device=self.device),
+            torch.as_tensor(mask, device=self.device), self.P_velo_to_img,
+            self.cfg)
+
+    def solve(self, prior_angles=None, prior_t=None):
+        """Frame-to-frame solve (reference solveNlsAll :254-450). Returns
+        (angles, t) of cam0_curr_T_cam0_last, float64 on the host."""
+        i, j = self.i, 1 - self.i
+        if self.count < 1:
+            return self.angles, self.t
+        if self.cfg.optical_flow_match:
+            curr_uv, status = lk_flow(self.images[j], self.images[i],
+                                      self.kp[j], self.cfg)
+            valid = self.kp_mask[j] & status
+        else:
+            idx1, valid = features.match_descriptors(
+                self.desc[j], self.kp_mask[j], self.desc[i], self.kp_mask[i],
+                self.cfg.match_ratio, matcher=self.cfg.matcher,
+                select=self.cfg.match_select)
+            curr_uv = self.kp[i][idx1]
+        prev_uv = self.kp[j]
+        if self.cfg.reset_VO_to_identity or prior_angles is None:
+            a0 = torch.zeros(3, device=self.device)
+            t0 = torch.zeros(3, device=self.device)
+        else:
+            a0 = torch.tensor(np.asarray(prior_angles), dtype=torch.float32,
+                              device=self.device)
+            t0 = torch.tensor(np.asarray(prior_t), dtype=torch.float32,
+                              device=self.device)
+        angles, t, n32, n22 = solve_vo(prev_uv, curr_uv, valid,
+                                       self.grids[j], self.Kinv, a0, t0,
+                                       self.cfg)
+        self.angles = angles.cpu().numpy().astype(np.float64)
+        self.t = t.cpu().numpy().astype(np.float64)
+        self.stats = {"n32": int(n32), "n22": int(n22)}
+        # kept for the debug-image renderers (reference visualize_* flags)
+        self.last_matches = (prev_uv.cpu().numpy(), curr_uv.cpu().numpy(),
+                             valid.cpu().numpy())
+        return self.angles, self.t

@@ -18,9 +18,10 @@ the host: every lax.cond / jnp.where of the reference is a torch.where over
 results computed unconditionally, and the packed VLOAM_OUT_DIM rows stay on
 the device until ``VloamEngine.finish``.
 
-Options off by default on this path (CLAHE, bucket NMS, LK flow matching,
-the low-texture fallback, the other detectors / descriptors, FLANN) and the
-engine's mesh / map_callback arguments raise NotImplementedError.
+The VO options CLAHE, bucket NMS, LK flow matching and the low-texture
+fallback (LK flow re-matches a frame pair whose descriptor matches
+collapsed) run as the reference's; the other detectors and descriptors,
+FLANN and the engine's mesh argument raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,25 +44,10 @@ from .lidar.scan_registration import (polar_directions, ray_directions,
 from .lidar.voxel import voxel_downsample
 from .vision import features
 from .vision.depth_map import DepthGrid, build_depth_grid, grid_shape
+from .vision.optical_flow import lk_flow
 from .vision.vo import solve_vo
 
 VLOAM_OUT_DIM = 33
-
-_UNPORTED_FLAGS = ("clahe", "keypoint_nms", "optical_flow_match",
-                   "lowtex_fallback")
-
-
-def check_vo_options(vo) -> None:
-    """Raise NotImplementedError for a VO option the port does not run."""
-    for name in _UNPORTED_FLAGS:
-        if getattr(vo, name):
-            raise NotImplementedError(f"vo.{name}=True is not ported")
-    for name, value in (("detector", "shi_tomasi"), ("descriptor", "zncc"),
-                        ("matcher", "bf")):
-        if getattr(vo, name) != value:
-            raise NotImplementedError(
-                f"vo.{name}={getattr(vo, name)!r} is not ported (only "
-                f"{value!r})")
 
 
 class CamExtrinsics(NamedTuple):
@@ -184,14 +170,20 @@ class MapState(NamedTuple):
 
 def _vision_frame_core(vstate: VisionState, scan, n_pts, image_u8, a_seed,
                        t_seed, initialized, ext: CamExtrinsics, cfg):
-    """Vision half of one frame: detect / describe / match, depth grid and
-    the VO solve from an explicit cam-frame seed. Returns (vstate', prior_q,
-    prior_t, vo_ok, vo_out [9])."""
+    """Vision half of one frame: detect / describe / match (or LK flow), depth
+    grid and the VO solve from an explicit cam-frame seed. Returns (vstate',
+    prior_q, prior_t, vo_ok, vo_out [9])."""
     vo = cfg.vo
-    check_vo_options(vo)
+    features.check_vo_options(vo)
     dev = image_u8.device
     img = image_u8.to(torch.float32) / 255.0
-    xy, _, kp_mask = features.detect_keypoints(img, vo)
+    if vo.clahe:
+        img = features.clahe(img)
+    xy, score, kp_mask = features.detect_keypoints(img, vo)
+    if vo.keypoint_nms:
+        kp_mask = features.bucket_nms(xy, score, kp_mask, vo.img_width,
+                                      vo.img_height, vo.nms_bucket,
+                                      vo.nms_bucket, vo.nms_max_total)
     desc = features.describe_keypoints(img, xy, vo)
     in_mask = torch.arange(scan.shape[0], device=dev) < n_pts
     grid = build_depth_grid(scan, in_mask, ext.P_velo_to_img, vo)
@@ -200,21 +192,47 @@ def _vision_frame_core(vstate: VisionState, scan, n_pts, image_u8, a_seed,
         a_seed = torch.zeros_like(a_seed)
         t_seed = torch.zeros_like(t_seed)
 
-    idx1, ok = features.match_descriptors(
-        vstate.prev_desc, vstate.prev_kp_mask, desc, kp_mask, vo.match_ratio,
-        matcher=vo.matcher, select=vo.match_select)
-    curr_uv = torch.index_select(xy, 0, idx1)
-    valid = ok & initialized
+    if vo.optical_flow_match:
+        curr_uv, status = lk_flow(vstate.prev_img, img, vstate.prev_kp, vo)
+        valid = vstate.prev_kp_mask & status
+    else:
+        idx1, valid = features.match_descriptors(
+            vstate.prev_desc, vstate.prev_kp_mask, desc, kp_mask,
+            vo.match_ratio, matcher=vo.matcher, select=vo.match_select)
+        curr_uv = torch.index_select(xy, 0, idx1)
+        if vo.lowtex_fallback:
+            # descriptor matching collapsed (low texture): re-match the
+            # frame pair by LK flow, which tracks faint texture that fails
+            # the ratio test. A device select, never a host branch.
+            xy1, status = lk_flow(vstate.prev_img, img, vstate.prev_kp, vo)
+            used_flow = torch.sum(valid) < vo.min_vo_matches
+            curr_uv = torch.where(used_flow, xy1, curr_uv)
+            valid = torch.where(used_flow, vstate.prev_kp_mask & status,
+                                valid)
+    valid = valid & initialized
 
     angles, t_vo, n32, n22 = solve_vo(vstate.prev_kp, curr_uv, valid,
                                       vstate.prev_grid, ext.Kinv, a_seed,
                                       t_seed, vo)
     q_vo = so3.quat_from_axis_angle(angles)
-    vo_ok = (initialized & torch.all(torch.isfinite(angles))
-             & torch.all(torch.isfinite(t_vo))
-             & (n32 + n22 >= vo.min_vo_matches))
-    q_vo = torch.where(vo_ok, q_vo, so3.identity_quat(dev))
-    t_vo = torch.where(vo_ok, t_vo, 0.0)
+    solve_ok = (initialized & torch.all(torch.isfinite(angles))
+                & torch.all(torch.isfinite(t_vo))
+                & (n32 + n22 >= vo.min_vo_matches))
+    if vo.lowtex_fallback:
+        # Only a descriptor solve may seed LO (flow on textureless input can
+        # track confidently wrong). The exported stream falls back from the
+        # solve (descriptors or flow) to the LO-derived seed, then identity.
+        vo_ok = solve_ok & ~used_flow
+        q_fb = so3.quat_from_axis_angle(a_seed)
+        q_fb = torch.where(torch.all(torch.isfinite(q_fb)), q_fb,
+                           so3.identity_quat(dev))
+        t_fb = torch.where(torch.all(torch.isfinite(t_seed)), t_seed, 0.0)
+        q_vo = torch.where(solve_ok, q_vo, q_fb)
+        t_vo = torch.where(solve_ok, t_vo, t_fb)
+    else:
+        vo_ok = solve_ok
+        q_vo = torch.where(vo_ok, q_vo, so3.identity_quat(dev))
+        t_vo = torch.where(vo_ok, t_vo, 0.0)
 
     q_vo_i, t_vo_i = _invert(q_vo, t_vo)
     qv_i, tv_i = _invert(ext.q_velo_cam, ext.t_velo_cam)
@@ -430,7 +448,7 @@ class VloamEngine:
                  pack12: bool = False, map_callback=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("VloamEngine(mesh=...) is not ported")
-        check_vo_options(cfg.vo)
+        features.check_vo_options(cfg.vo)
         self.cfg = cfg
         self.chunk = chunk
         self.device = engine_device(device)
