@@ -100,6 +100,33 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         --engine host --viz DIR with no --device, and with --optical-flow,
         side by side: match (flow) and depth PNGs, the timing summary and
         the kernel launches they print
+  V. the other VO options and the batched sector selection, at full width:
+     1. detect_keypoints with the fast, orb, brisk, sift and akaze
+        detectors on frame 0's image, card against CPU: masks equal, >= 99%
+        of positions equal; keypoints, the largest response difference and
+        the device time a call printed. Where the config's FAST threshold
+        (100/255) finds fewer than 50 corners on the synthetic image, the
+        FAST-based detectors run at 0.06 (tests/test_vision.py's), and the
+        line says so
+     2. orb_describe of frame 0's 2048 keypoint rows, card against CPU (>=
+        99.9% of bits equal); match_descriptors with matcher="flann"
+        against "bf" on the card: idx and valid identical
+     3. VloamEngine over the first 16 frames with (a) ORB detector, ORB
+        descriptors and FLANN, (b) the SIFT detector: finite rows, MO error
+        < 0.15 m, 0 host syncs in frames 8-15, launches and device time a
+        frame under torch.profiler (frames 4-7), each hand-written kernel's
+        launches (K3 0 in (a)), beside the default options driven the same
+        way
+     4. LoamEngine with strict_sector_order=False over the first 16 frames:
+        K1 0 launches, frames/s and launches a frame beside the strict
+        engine's driven the same way, labels
+        per frame that differ from the strict selection, 0 host syncs, MO
+        error < 0.15 m, the first 6 frames on the CPU within phase 6's
+        bounds
+     5. essential-matrix RANSAC on 2048 synthetic correspondences with 30%
+        outliers, one set of 256 minimal samples drawn from a seeded CPU
+        generator: inlier masks identical card vs CPU, R within 1e-3 rad
+        and t within 1e-3 of the truth on both; time a call
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -1648,6 +1675,284 @@ def flow_phase(cfg, frames, images, poses, calib, default_stats) -> None:
             fail(f"{option}: MO error {err['MO']} m >= 0.15 m")
 
 
+V_FRAMES = 16  # frames of the option engines' drives (V3, V4)
+V_CHUNK = 4  # frames 0-3 warm, 4-7 under the profiler, 8-15 timed
+V_DETECTORS = ("fast", "orb", "brisk", "sift", "akaze")
+V5_POINTS, V5_OUTLIERS, V5_HYP = 2048, 614, 256
+
+
+def _v_drive(push, n_frames=V_FRAMES):
+    """Frames 0-3 warm, 4-7 under torch.profiler, 8-15 timed with every host
+    sync recorded: (profile stats, frames/s and host enqueue ms of the timed
+    frames, the sync warnings)."""
+    prof = _profile(push, V_CHUNK, V_CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, syncs = _sync_free(push, range(2 * V_CHUNK, n_frames))
+    torch.cuda.synchronize()
+    n = n_frames - 2 * V_CHUNK
+    return prof, n / (time.perf_counter() - t0), host * 1e3 / n, syncs
+
+
+def detector_phase(vo, images, dev="cuda") -> float:
+    """V1: detect_keypoints with each alternate detector on frame 0 of the
+    combined drive, on the card and on the CPU (the port's plain path).
+    Returns the FAST threshold used (the config's, or 0.06 where it finds
+    fewer than 50 FAST corners on the synthetic images)."""
+    import dataclasses
+
+    from vloam_tpu_torch.tools.timing import device_ms
+    from vloam_tpu_torch.vision import features
+
+    img = torch.from_numpy(images[0]).to(dev).float() / 255.0
+    thr = vo.fast_threshold
+    n_fast = int(features.detect_keypoints(
+        img, dataclasses.replace(vo, detector="fast"))[2].sum())
+    note = f"fast_threshold {thr:.4f} (the config's)"
+    if n_fast < 50:
+        thr = 0.06
+        note = (f"fast_threshold 0.06: the config's {vo.fast_threshold:.4f} "
+                f"finds {n_fast} FAST corners on the synthetic image")
+    parts = []
+    for det in V_DETECTORS:
+        cfg = dataclasses.replace(vo, detector=det, fast_threshold=thr)
+        xy, score, mask = (a.cpu() for a in features.detect_keypoints(img,
+                                                                      cfg))
+        xc, sc, mc = features.detect_keypoints(img.cpu(), cfg)
+        resp = features.detector_response(img, cfg).cpu()
+        resp_c = features.detector_response(img.cpu(), cfg)
+        same = float((xy == xc).all(dim=1)[mask].float().mean())
+        ms = device_ms(lambda: features.detect_keypoints(img, cfg), runs=5,
+                       cold=False)
+        parts.append(
+            f"{det} {int(mask.sum())} keypoints, masks "
+            f"{'equal' if torch.equal(mask, mc) else 'DIFFER'}, positions "
+            f"equal {same:.4f}, max |response diff| "
+            f"{float((resp - resp_c).abs().max()):.3g}, max |score diff| "
+            f"{float((score - sc).abs().max()):.3g}, {ms:.3f} ms")
+        if not (torch.equal(mask, mc) and same >= 0.99 and mask.sum() > 0):
+            fail(f"V1: {det} keypoints differ between the card and the CPU")
+    print(f"[V1 detectors] frame 0, {IMG_W}x{IMG_H}, "
+          f"{vo.max_keypoints} keypoints, {note}; card vs CPU: "
+          + "; ".join(parts) + " (device time a call, 5 calls queued) "
+          + clocks(), flush=True)
+    return thr
+
+
+def orb_flann_phase(vo, images, thr, dev="cuda") -> None:
+    """V2: orb_describe of frame 0's keypoints, card against CPU; FLANN
+    against BF on the card on frames 0 and 1."""
+    import dataclasses
+
+    from vloam_tpu_torch.tools.timing import device_ms
+    from vloam_tpu_torch.vision import features
+
+    cfg = dataclasses.replace(vo, detector="orb", descriptor="orb",
+                              fast_threshold=thr)
+    imgs = [torch.from_numpy(images[k]).to(dev).float() / 255.0
+            for k in (0, 1)]
+    kps = [features.detect_keypoints(im, cfg) for im in imgs]
+    descs = [features.orb_describe(im, kp[0]) for im, kp in zip(imgs, kps)]
+    cpu = features.orb_describe(imgs[0].cpu(), kps[0][0].cpu())
+    same = float((descs[0].cpu() == cpu).float().mean())
+    m0 = kps[0][2].cpu()
+    same_kp = float((descs[0].cpu() == cpu)[m0].float().mean())
+    ms = device_ms(lambda: features.orb_describe(imgs[0], kps[0][0]))
+    out = {}
+    for matcher in ("flann", "bf"):
+        out[matcher] = [a.cpu() for a in features.match_descriptors(
+            descs[0], kps[0][2], descs[1], kps[1][2], cfg.match_ratio,
+            matcher=matcher)]
+    identical = all(torch.equal(a, b) for a, b in zip(out["flann"],
+                                                      out["bf"]))
+    print(f"[V2 ORB and FLANN] orb_describe of {descs[0].shape[0]} keypoint "
+          f"rows ({int(m0.sum())} detected) x 256 bits: card vs CPU bits "
+          f"equal {same:.6f} (detected rows {same_kp:.6f}); {ms:.4f} ms on "
+          f"the card (cold L2, 20 calls queued); FLANN vs BF on the card "
+          f"(frames 0 -> 1): idx and valid "
+          f"{'identical' if identical else 'DIFFER'}, "
+          f"{int(out['flann'][1].sum())} valid matches {clocks()}",
+          flush=True)
+    if not (same >= 0.999 and identical):
+        fail("V2: ORB bits or FLANN matches disagree")
+
+
+def option_engines_phase(cfg, frames, images, poses, calib, thr) -> None:
+    """V3: VloamEngine over the first 16 frames with (a) ORB detector, ORB
+    descriptors and FLANN, (b) the SIFT detector (ZNCC, BF), beside the
+    default options driven the same way."""
+    import dataclasses
+
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.vloam_step import VloamEngine, unpack_vloam_outputs
+
+    for name, opts, k3 in (
+            ("default: shi_tomasi / zncc / bf", {}, V_FRAMES),
+            ("a: orb / orb / flann", dict(detector="orb", descriptor="orb",
+                                          matcher="flann",
+                                          fast_threshold=thr), 0),
+            ("b: sift / zncc / bf", dict(detector="sift"), V_FRAMES)):
+        cfg_o = cfg.replace(vo=dataclasses.replace(cfg.vo, **opts))
+        eng = VloamEngine(cfg_o, calib, chunk=V_CHUNK, device="cuda")
+        kernels.reset_launches()
+        prof, fps, host, syncs = _v_drive(
+            lambda k: eng.push_polar(frames[k], images[k]))
+        outs = eng.finish()
+        launches = dict(kernels.LAUNCHES)
+        if outs.shape != (V_FRAMES, 33) or not np.isfinite(outs).all():
+            fail(f"V3 {name}: outputs {outs.shape} not finite")
+        err = vloam_errors(unpack_vloam_outputs(outs, calib),
+                           poses[:V_FRAMES], calib)
+        print(f"[V3 VloamEngine {name}] {V_FRAMES} frames: {fps:.2f} "
+              f"frames/s over frames {2 * V_CHUNK}-{V_FRAMES - 1} (host "
+              f"enqueue {host:.2f} ms/frame); {prof['launches']:.0f} kernel "
+              f"launches and {prof['device_ms']:.2f} ms of device time a "
+              f"frame under the profiler, frames {V_CHUNK}-{2 * V_CHUNK - 1}; "
+              f"hand-kernel launches {launches}; "
+              f"max err vs GT LO {err['LO']:.4f} m, MO {err['MO']:.4f} m; VO "
+              f"ATE {err['VO']:.4f} m; min n32 {err['n32']}; host syncs "
+              f"{len(syncs)} {clocks()}", flush=True)
+        want = lidar_launches(V_FRAMES, zncc_describe=k3)
+        if launches != want:
+            fail(f"V3 {name}: launches {launches}, want {want}")
+        if syncs:
+            fail(f"V3 {name}: the frame loop synchronized: {syncs[:3]}")
+        if not err["MO"] < 0.15:
+            fail(f"V3 {name}: MO error {err['MO']} m >= 0.15 m")
+
+
+def batched_selection_phase(cfg, frames, poses) -> None:
+    """V4: LoamEngine with strict_sector_order=False over the first 16
+    frames beside the strict engine driven the same way, card against the
+    CPU over the first CPU_FRAMES; labels that differ from the strict
+    selection on each frame."""
+    import dataclasses
+
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.data.synthetic import hdl64_elevations
+    from vloam_tpu_torch.lidar import scan_registration as sr
+    from vloam_tpu_torch.lidar.loam_step import LoamEngine, unpack_outputs
+
+    cfg_b = cfg.replace(scanreg=dataclasses.replace(
+        cfg.scanreg, strict_sector_order=False))
+    elev = torch.tensor(np.radians(hdl64_elevations(64)),
+                        dtype=torch.float32, device="cuda")
+    dirs = sr.polar_directions(elev, N_AZ)
+    moved, total = [], []
+    for img in frames[:V_FRAMES]:
+        r = torch.from_numpy(img.astype(np.int32)).cuda()
+        pts, _, counts = sr.polar_layout(r, dirs, cfg.lidar)
+        curv = sr._curvature(pts)
+        bf = sr._break_prefix(pts, cfg.scanreg.neighbor_suppress_gap_sq)
+        strict = sr.select_rings(curv, bf, counts, cfg.scanreg)
+        batched = sr.select_rings_batched(curv, bf, counts, cfg_b.scanreg)
+        moved.append(int((strict != batched).sum()))
+        total.append(int((strict != 0).sum()))
+
+    strict_eng = LoamEngine(cfg, chunk=V_CHUNK, device="cuda")
+    strict, s_fps, s_host, _ = _v_drive(
+        lambda k: strict_eng.push_polar(frames[k]))
+    strict_eng.finish()
+    eng = LoamEngine(cfg_b, chunk=V_CHUNK, device="cuda")
+    kernels.reset_launches()
+    prof, fps, host, syncs = _v_drive(lambda k: eng.push_polar(frames[k]))
+    outs = eng.finish()
+    launches = dict(kernels.LAUNCHES)
+    res = unpack_outputs(outs)
+    gt = np.stack([T[:3, 3] for T in poses[:V_FRAMES]])
+    err = float(np.linalg.norm(res["t_w_mo"] - gt, axis=1).max())
+    ceng = LoamEngine(cfg_b, chunk=CPU_FRAMES, device="cpu")
+    for k in range(CPU_FRAMES):
+        ceng.push_polar(frames[k])
+    rc = unpack_outputs(ceng.finish())
+    lo = float(np.abs(rc["t_w_lo"] - res["t_w_lo"][:CPU_FRAMES]).max())
+    mo = float(np.abs(rc["t_w_mo"] - res["t_w_mo"][:CPU_FRAMES]).max())
+    print(f"[V4 batched sector selection] LoamEngine strict_sector_order="
+          f"False, {V_FRAMES} frames: {fps:.2f} frames/s over frames "
+          f"{2 * V_CHUNK}-{V_FRAMES - 1} (strict {s_fps:.2f}; host enqueue "
+          f"{host:.2f} ms/frame, strict {s_host:.2f}); "
+          f"{prof['launches']:.0f} kernel launches a frame (strict "
+          f"{strict['launches']:.0f}), device {prof['device_ms']:.2f} ms a "
+          f"frame (strict {strict['device_ms']:.2f}) under the profiler, "
+          f"frames {V_CHUNK}-{2 * V_CHUNK - 1}; hand-kernel launches "
+          f"{launches}; labels that differ "
+          f"from the strict selection per frame {moved} of {total}; MO max "
+          f"err vs GT {err:.4f} m; card vs CPU over the first {CPU_FRAMES} "
+          f"frames: max |t_w_lo| diff {lo:.2e} m, |t_w_mo| {mo:.2e} m; host "
+          f"syncs {len(syncs)} {clocks()}", flush=True)
+    want = lidar_launches(V_FRAMES, select_rings=0)
+    if launches != want:
+        fail(f"V4: launches {launches}, want {want}")
+    if syncs:
+        fail(f"V4: the frame loop synchronized: {syncs[:3]}")
+    if outs.shape != (V_FRAMES, 24) or not np.isfinite(outs).all():
+        fail(f"V4: outputs {outs.shape} not finite")
+    if not (err < 0.15 and lo < 2e-2 and mo < 3e-2):
+        fail("V4: MO error or card vs CPU out of bounds")
+
+
+def v5_scene():
+    """2048 normalized correspondences of a rigid motion (rotation vector
+    (0.02, -0.04, 0.01), direction of (0.2, -0.1, 1)), the first 30%
+    replaced by uniform outliers: (x0, x1, valid, R, t_unit) as float32
+    tensors and float64 numpy truth (tests/test_torch_ransac_se3_factors.py
+    holds the reference to it)."""
+    from vloam_tpu_torch.geometry import so3
+
+    rng = np.random.default_rng(5)
+    X0 = rng.uniform([-10.0, -4.0, 4.0], [10.0, 4.0, 50.0], (V5_POINTS, 3))
+    R = so3.axis_angle_to_matrix(torch.tensor(
+        [0.02, -0.04, 0.01], dtype=torch.float64)).numpy()
+    t = np.array([0.2, -0.1, 1.0])
+    X1 = X0 @ R.T + t
+    x0 = (X0[:, :2] / X0[:, 2:3]).astype(np.float32)
+    x1 = (X1[:, :2] / X1[:, 2:3]).astype(np.float32)
+    x1[:V5_OUTLIERS] = rng.uniform(-0.5, 0.5, (V5_OUTLIERS, 2))
+    return (torch.from_numpy(x0), torch.from_numpy(x1),
+            torch.ones(V5_POINTS, dtype=torch.bool), R,
+            t / np.linalg.norm(t))
+
+
+def ransac_phase(dev="cuda") -> None:
+    """V5: essential_ransac_from_samples on the card and on the CPU with one
+    set of minimal samples drawn from a seeded CPU torch.Generator."""
+    from vloam_tpu_torch.geometry import so3
+    from vloam_tpu_torch.vision import ransac
+
+    x0, x1, valid, R, t = v5_scene()
+    idx = torch.multinomial(valid.float() / V5_POINTS, V5_HYP * 8,
+                            replacement=True,
+                            generator=torch.Generator().manual_seed(5))
+    idx = idx.reshape(V5_HYP, 8)
+    args = [a.to(dev) for a in (idx, x0, x1, valid)]
+    out = [a.cpu() for a in ransac.essential_ransac_from_samples(*args)]
+    cpu = ransac.essential_ransac_from_samples(idx, x0, x1, valid)
+    for _ in range(2):
+        ransac.essential_ransac_from_samples(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ransac.essential_ransac_from_samples(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e2
+    errs = []
+    for q, tt, _, _ in (out, cpu):
+        Rq = so3.quat_to_matrix(q.double()).numpy()
+        cos = np.clip((np.trace(Rq.T @ R) - 1.0) / 2.0, -1.0, 1.0)
+        errs.append((float(np.arccos(cos)),
+                     float(np.abs(tt.double().numpy() - t).max())))
+    same = torch.equal(out[2], cpu[2]) and int(out[3]) == int(cpu[3])
+    print(f"[V5 RANSAC] {V5_POINTS} correspondences, {V5_OUTLIERS} "
+          f"outliers, {V5_HYP} hypotheses: inliers card {int(out[3])}, CPU "
+          f"{int(cpu[3])}, masks {'identical' if same else 'DIFFER'}; R / t "
+          f"error vs truth card {errs[0][0]:.2e} rad / {errs[0][1]:.2e}, CPU "
+          f"{errs[1][0]:.2e} rad / {errs[1][1]:.2e}; {ms:.3f} ms a call on "
+          f"the card (host clock over 10 calls between synchronizes: its "
+          f"SVDs wait for the device) {clocks()}", flush=True)
+    if not (same and all(r < 1e-3 and d < 1e-3 for r, d in errs)):
+        fail("V5: RANSAC on the card disagrees with the CPU or the truth")
+
+
 def _popen_cli(*args) -> subprocess.Popen:
     root = os.path.dirname(os.path.abspath(__file__))
     return subprocess.Popen([sys.executable, "-m", "vloam_tpu_torch", *args],
@@ -1748,6 +2053,11 @@ def main() -> None:
     host_cpu_phase(cfg_v, host_frames, calib, res_he)
     flow_phase(cfg_v, frames, images, poses, calib, stats13["VloamEngine"])
     host_cli_viz_phase()
+    thr = detector_phase(cfg_v.vo, images)
+    orb_flann_phase(cfg_v.vo, images, thr)
+    option_engines_phase(cfg_v, frames, images, poses, calib, thr)
+    batched_selection_phase(cfg, frames, poses)
+    ransac_phase()
     # launches: each kernel's count over the run of the path that drives it,
     # with the counts set to 0 just before: the batch drive (phase 10), the
     # combined engine (phase 8) for K3, the ring-variants entry point (phase

@@ -16,7 +16,8 @@ CPU at the small test profile (tests/test_pipeline.py::small_cfg).
   test_golden_regression.py's tolerances: LO 2e-2 m, MO 3e-2 m, and MO
   within 0.15 m of ground truth.
 - push_polar against the JAX LoamEngine.push_polar on the frames
-  tests/test_loam_engine.py uses: LO 1e-3 m, MO 1e-2 m per frame.
+  tests/test_loam_engine.py uses: LO 1e-3 m, MO 1e-2 m per frame; the same
+  with strict_sector_order=False (the batched sector selection).
 - convert.py round trip: bit-exact, dtypes kept.
 - solve_lo with deskew (distortion=True) against the reference, poses to
   1e-4 as on the default path.
@@ -204,6 +205,25 @@ def test_push_polar_matches_jax_engine(polar_drive):
     assert np.linalg.norm(o_t["t_w_mo"] - gt, axis=1).max() < 0.3
 
 
+def test_push_polar_batched_selection_matches_jax_engine(polar_drive):
+    """strict_sector_order=False (the batched sector selection) through
+    both engines over the same frames, to push_polar's bounds."""
+    imgs, poses = polar_drive[:2]
+    cfg = CFG.replace(scanreg=dataclasses.replace(CFG.scanreg,
+                                                  strict_sector_order=False))
+    outs = []
+    for eng in (jls.LoamEngine(cfg, chunk=2),
+                tls.LoamEngine(cfg, chunk=2, device="cpu")):
+        for img in imgs:
+            eng.push_polar(img)
+        outs.append(eng.finish())
+    o_j, o_t = jls.unpack_outputs(outs[0]), tls.unpack_outputs(outs[1])
+    np.testing.assert_allclose(o_t["t_w_lo"], o_j["t_w_lo"], atol=1e-3)
+    np.testing.assert_allclose(o_t["t_w_mo"], o_j["t_w_mo"], atol=1e-2)
+    gt = np.stack([T[:3, 3] for T in poses])
+    assert np.linalg.norm(o_t["t_w_mo"] - gt, axis=1).max() < 0.3
+
+
 def test_port_engine_reproduces_golden_drive():
     scene = synthetic.urban_scene(42)
     poses = synthetic.drive_trajectory(6, speed=1.0, yaw_rate=0.015)
@@ -281,7 +301,9 @@ def test_port_never_imports_jax():
             "vloam_tpu_torch.runtime.checkpoint, "
             "vloam_tpu_torch.runtime.profiling, vloam_tpu_torch.data.kitti, "
             "vloam_tpu_torch.backend.loop_closure, "
-            "vloam_tpu_torch.parallel.pose_graph; "
+            "vloam_tpu_torch.parallel.pose_graph, "
+            "vloam_tpu_torch.vision.ransac, vloam_tpu_torch.geometry.se3, "
+            "vloam_tpu_torch.solver.factors, vloam_tpu_torch.eval.plotting; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vloam_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -19,8 +19,13 @@ scan_registration) with the JAX reference at the tiny test profile.
   float32 sin/cos differ by an ulp on ~5% of the columns, and an ulp in a
   point moves the prefix-sum curvature of its neighbours enough to reorder
   near-tied flat picks; polar_directions itself agrees to 1e-6.
+- The batched selection (strict_sector_order=False), select_rings_batched,
+  equals the reference's vmapped batched _select_ring on the layout and on
+  every crafted case (labels identical), and register_scan /
+  register_scan_polar with it give features as above.
 """
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -228,9 +233,45 @@ def test_register_scan_polar_matches_jax(frame):
     _assert_features_equal(ft, fj)
 
 
-def test_strict_order_off_is_not_ported(layout):
-    pts, _, _, counts = layout
+def _xla_batched_labels(pts, curv, counts, cfg):
+    return np.asarray(jax.jit(jax.vmap(
+        lambda p, c, k: jsr._select_ring(p, c, k, cfg)[0]))(
+            jnp.asarray(pts), jnp.asarray(curv), jnp.asarray(counts)))
+
+
+def test_select_rings_batched_matches_jax(layout):
+    pts, curv, bf, counts = layout
+    cfg = dataclasses.replace(CFG.scanreg, strict_sector_order=False)
+    got = tsr.select_rings_batched(curv, bf, counts, cfg).numpy()
+    np.testing.assert_array_equal(got, _xla_batched_labels(
+        pts.numpy(), curv.numpy(), counts.numpy(), cfg))
+    strict = tsr.select_rings_plain(curv, bf, counts, CFG.scanreg).numpy()
+    # the edge effect the reference's docstring names: a few labels move
+    assert (got == 2).sum() > 0 and (got == -1).sum() > 0
+    assert 0 < (got != strict).sum() < 0.05 * (got != 0).sum()
+
+
+@pytest.mark.parametrize("case", kernel_cases.select_rings_cases(),
+                         ids=lambda c: c.name)
+def test_select_rings_batched_crafted_cases(case):
     cfg = ScanRegistrationConfig(strict_sector_order=False)
-    with pytest.raises(NotImplementedError):
-        tsr._features_from_layout(pts, torch.zeros(pts.shape[:2]), counts,
-                                  cfg)
+    got = tsr.select_rings_batched(_t(case.curv), _t(case.bf),
+                                   _t(case.counts), cfg).numpy()
+    np.testing.assert_array_equal(got, _xla_batched_labels(
+        case.pts, case.curv, case.counts, cfg))
+
+
+def test_register_scan_batched_matches_jax(frame):
+    img, pts, elev = frame
+    cfg = dataclasses.replace(CFG.scanreg, strict_sector_order=False)
+    padded, n = synthetic.pad_scan(pts, CFG.lidar.max_points)
+    fj = jsr.register_scan(jnp.asarray(padded), jnp.int32(n), CFG.lidar, cfg)
+    ft = tsr.register_scan(_t(padded), n, CFG.lidar, cfg)
+    assert ft.sharp.mask.sum() > 20 and ft.flat.mask.sum() > 20
+    _assert_features_equal(ft, fj)
+    dirs_j = np.asarray(_jax_dirs(jnp.asarray(elev)))
+    fj = jsr.register_scan_polar(jnp.asarray(img), jnp.asarray(elev),
+                                 CFG.lidar, cfg)
+    ft = tsr.register_scan_polar(_t(img.astype(np.int32)), _t(dirs_j),
+                                 CFG.lidar, cfg)
+    _assert_features_equal(ft, fj)

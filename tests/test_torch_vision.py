@@ -391,20 +391,6 @@ def test_solve_vo_matches_jax(frames, jax_vision):
         np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-4)
 
 
-@pytest.mark.parametrize("option", [
-    {"detector": "fast"}, {"descriptor": "orb"}, {"matcher": "flann"}])
-def test_unported_vision_options_raise(frames, option):
-    cfg = dataclasses.replace(VO, **option)
-    img = _t(frames[0][0])
-    xy = torch.zeros((4, 2))
-    desc = torch.zeros((4, 16))
-    m = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        tf.detect_keypoints(img, cfg)
-        tf.describe_keypoints(img, xy, cfg)
-        tf.match_descriptors(desc, m, desc, m, matcher=cfg.matcher)
-
-
 def test_similarity_is_full_precision(rng):
     """The matcher's product is exact to float32 rounding of the float64
     product (the JAX form asks for Precision.HIGHEST)."""

@@ -14,13 +14,18 @@ seeded from the same frame's VO).
 - one frame on state carried over from the JAX engine through convert.py
   (both loops, the assembled row) to the same bounds; the round trip of
   that state is bit-exact.
+- the ORB detector, ORB descriptors and the FLANN matcher together, over
+  the xyz drive, to the same bounds. The reference's engine state holds
+  [K, p*p] descriptors whatever the descriptor, so its ORB engine runs only
+  at p = 16 (16 * 16 = 256 bits); the test runs both engines there.
 - the engine's host side: off-size images are fitted, the polar FOV wedge
-  is checked, options and arguments that are not ported raise, and the
-  new modules import neither jax nor the JAX package.
+  is checked, the mesh argument raises, and the new modules import neither
+  jax nor the JAX package.
 The four VO options CLAHE, bucket NMS, LK flow matching and the low-texture
 fallback are held to the JAX engine in tests/test_torch_optical_flow.py.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -126,6 +131,25 @@ def test_push_polar_pack12_matches_jax_engine(polar_drive):
     assert res["traj_VO"][-1, 2, 3] > 2.0  # the VO stream moves forward
 
 
+def test_orb_flann_engine_matches_jax_engine(xyz_drive):
+    calib, frames, _, _ = xyz_drive
+    # fast_threshold: tests/test_vision.py's for the synthetic images (the
+    # default, 100/255, finds few corners on them)
+    vo = dataclasses.replace(CFG.vo, detector="orb", descriptor="orb",
+                             matcher="flann", descriptor_patch=16,
+                             fast_threshold=0.06)
+    cfg = CFG.replace(vo=vo)
+    outs = []
+    for eng in (jvs.VloamEngine(cfg, calib, chunk=2),
+                tvs.VloamEngine(cfg, calib, chunk=2, device="cpu")):
+        for f in frames:
+            eng.push(f["points"], f["image"])
+        outs.append(eng.finish())
+    want, got = outs
+    assert np.isfinite(got).all()
+    _check_rows(got, want, calib)
+
+
 def test_frame_on_carried_state_matches_jax_engine(xyz_drive):
     """Frame 2 through both loops from the JAX engine's state after frame
     1, converted by convert.py."""
@@ -181,21 +205,12 @@ def test_engine_fits_off_size_images(xyz_drive):
 
 
 def test_engine_rejects_what_is_not_ported(xyz_drive):
-    import dataclasses
-
     calib = xyz_drive[0]
     with pytest.raises(NotImplementedError, match="mesh"):
         tvs.VloamEngine(CFG, calib, mesh=object(), device="cpu")
     # the LiDAR-only engine refuses the mesh the same way
     with pytest.raises(NotImplementedError, match="mesh"):
         LoamEngine(CFG, mesh=object(), device="cpu")
-    # CLAHE, bucket NMS, LK flow and the low-texture fallback are ported
-    # (tests/test_torch_optical_flow.py)
-    for option in ({"detector": "orb"}, {"descriptor": "orb"},
-                   {"matcher": "flann"}):
-        cfg = CFG.replace(vo=dataclasses.replace(CFG.vo, **option))
-        with pytest.raises(NotImplementedError, match=next(iter(option))):
-            tvs.VloamEngine(cfg, calib, device="cpu")
     # a camera yawed outside the decoded polar wedge is refused loudly
     yawed = type(calib)()
     yawed.__dict__.update(calib.__dict__)

@@ -113,9 +113,7 @@ class LaserMappingConfig:
 @dataclass(frozen=True)
 class VisualOdometryConfig:
     """DEMO-style depth-enhanced VO (reference visual_odometry.cpp,
-    image_util.cpp, point_cloud_util.cpp). The port runs the default
-    detector / descriptor / matcher; the other values of the option fields
-    raise NotImplementedError where they would be read."""
+    image_util.cpp, point_cloud_util.cpp)."""
 
     img_width: int = 1242
     img_height: int = 375

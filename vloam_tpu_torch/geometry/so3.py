@@ -120,6 +120,12 @@ def axis_angle_to_matrix(axis_angle: torch.Tensor) -> torch.Tensor:
             + c1[..., None] * _skew_sq(axis_angle, t2))
 
 
+def quat_slerp_identity(q: torch.Tensor, s) -> torch.Tensor:
+    """slerp(I, q, s), the de-skew interpolation of the lidar factors
+    (reference lidarFactor.hpp:29-31), as exp(s * log(q))."""
+    return quat_from_axis_angle(s * axis_angle_from_quat(q))
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     x, y, z, w = q.unbind(-1)
     xx, yy, zz = x * x, y * y, z * z
@@ -131,6 +137,29 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Branchless Shepperd conversion [..., 3, 3] -> [..., 4]: four
+    unnormalised candidates, the one of the largest score (first index on
+    ties, as jnp.argmax), normalised."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], dim=-1)
+    qx = torch.stack([1.0 + m00 - m11 - m22, m01 + m10, m02 + m20,
+                      m21 - m12], dim=-1)
+    qy = torch.stack([m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21,
+                      m02 - m20], dim=-1)
+    qz = torch.stack([m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22,
+                      m10 - m01], dim=-1)
+    scores = torch.stack([m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11, tr], dim=-1)
+    best = torch.argmax(scores, dim=-1)
+    cands = torch.stack([qx, qy, qz, qw], dim=-2)  # [..., 4, 4]
+    q = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
+    return quat_normalize(q)
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:

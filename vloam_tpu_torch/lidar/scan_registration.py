@@ -12,7 +12,9 @@ scan_registration.cpp:131-449).
 - the reference-exact strict sector selection (6 sectors x (20 corner + 4
   flat) serialized picks with +-5 gap-connected suppression) runs on CUDA
   as the hand-written kernel K1 (kernels/csrc/select_rings.cu) and on the
-  CPU as select_rings_plain,
+  CPU as select_rings_plain; with strict_sector_order=False the batched
+  selection (all sectors' k-th picks in one round) runs as plain torch,
+  select_rings_batched,
 - the per-ring 0.2 m VoxelGrid on the less-flat cloud is
   voxel.voxel_downsample_rows_slab.
 
@@ -229,6 +231,56 @@ def select_rings(curv: torch.Tensor, bf: torch.Tensor, counts: torch.Tensor,
         cfg.max_less_sharp_per_sector, cfg.max_flat_per_sector)
 
 
+def select_rings_batched(curv: torch.Tensor, bf: torch.Tensor,
+                         counts: torch.Tensor, cfg) -> torch.Tensor:
+    """Batched sector selection (strict_sector_order=False, the batched
+    branch of the reference's _select_ring) for all rings: each pick round
+    takes the k-th pick of every sector of every ring at once, one argmax
+    over [S, n_sectors, R], then max_less_sharp_per_sector corner rounds
+    and max_flat_per_sector flat rounds. It differs from the strict order
+    only where a pick's +-5 suppression window crosses into the next sector
+    in the same round. Plain torch on every device (there is no TPU kernel
+    for it). curv [S, R] f32, bf [S, R] int32, counts [S] -> label [S, R]
+    int32: 2 sharp, 1 less-sharp, -1 flat, 0 none."""
+    S, R = curv.shape
+    dev = curv.device
+    col = torch.arange(R, device=dev)
+    cnt = counts.to(torch.int64)[:, None, None]
+    start, end = 5, cnt - 6
+    ring_ok = (end - start) >= 6
+    j = torch.arange(cfg.n_sectors, device=dev)[None, :, None]
+    sp = start + _floor_div((end - start) * j, cfg.n_sectors)
+    ep = start + _floor_div((end - start) * (j + 1), cfg.n_sectors) - 1
+    sect = (col >= sp) & (col <= ep) & ring_ok & (col < cnt)  # [S, ns, R]
+    thr = cfg.curvature_threshold
+    picked = torch.zeros((S, R), dtype=torch.bool, device=dev)
+    label = torch.zeros((S, R), dtype=torch.int32, device=dev)
+    n_flat = cfg.max_flat_per_sector
+    rounds = ([(True, 2 if k < cfg.max_sharp_per_sector else 1, True)
+               for k in range(cfg.max_less_sharp_per_sector)]
+              # the reference does not suppress around the last flat pick
+              + [(False, -1, k < n_flat - 1) for k in range(n_flat)])
+    for corner, lab, suppress in rounds:
+        # corner: maximize curv gated at curv > thr; flat: maximize -curv
+        # gated at curv < thr (the first index of the reference's argmin).
+        # argmax gives the first index, as JAX's; a sector with no
+        # candidate picks index 0 with ok false, and writes nothing
+        score = curv if corner else -curv
+        tj = thr if corner else -thr
+        elig = sect & (~picked & (score > tj))[:, None, :]
+        c = torch.where(elig, score[:, None, :], -torch.inf)  # [S, ns, R]
+        ind = torch.argmax(c, dim=2)
+        ok = torch.take_along_dim(c, ind[..., None], dim=2)[..., 0] > tj
+        at = (col == ind[..., None]) & ok[..., None]
+        label = torch.where(torch.any(at, dim=1), lab, label)
+        if suppress:
+            bf_pick = torch.take_along_dim(bf, ind, dim=1)
+            supp = ((torch.abs(col - ind[..., None]) <= 5)
+                    & (bf[:, None, :] == bf_pick[..., None]) & ok[..., None])
+            picked = picked | torch.any(supp, dim=1)
+    return label
+
+
 def _selectable(counts: torch.Tensor, R: int) -> torch.Tensor:
     """[S, R] mask of the in-ring range the selection may pick from."""
     idx = torch.arange(R, device=counts.device)[None, :]
@@ -239,18 +291,16 @@ def _selectable(counts: torch.Tensor, R: int) -> torch.Tensor:
 
 
 def _features_from_layout(pts, rt, counts, cfg) -> ScanFeatures:
-    """Shared back half: curvature, strict selection and feature-cloud
-    assembly from a dense per-ring layout pts [S, R, 3] / rt [S, R] /
-    counts [S] (reference scan_registration.cpp:288-449)."""
-    if not cfg.strict_sector_order:
-        raise NotImplementedError(
-            "strict_sector_order=False (batched sector selection) is not "
-            "ported yet")
+    """Shared back half: curvature, sector selection (strict: K1; else the
+    batched rounds) and feature-cloud assembly from a dense per-ring layout
+    pts [S, R, 3] / rt [S, R] / counts [S] (reference
+    scan_registration.cpp:288-449)."""
     S, R = pts.shape[0], pts.shape[1]
     dev = pts.device
     curv = _curvature(pts)
     bf = _break_prefix(pts, cfg.neighbor_suppress_gap_sq)
-    label = select_rings(curv, bf, counts, cfg)
+    select = select_rings if cfg.strict_sector_order else select_rings_batched
+    label = select(curv, bf, counts, cfg)
     selectable = _selectable(counts, R)
 
     ring_ids = torch.arange(S, dtype=torch.int32, device=dev)[:, None]

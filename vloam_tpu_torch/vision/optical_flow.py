@@ -35,20 +35,23 @@ def _bilinear(img: torch.Tensor, x: torch.Tensor,
             + i10 * (1 - fx) * fy + i11 * fx * fy)
 
 
+def mean_pool2(img: torch.Tensor) -> torch.Tensor:
+    """2 x 2 average pooling (an odd last row or column is dropped). Each
+    block is summed row by row, left to right, as XLA's CPU reduce adds it
+    for outputs wider than 32 pixels, so such outputs are bit-identical to
+    the reference's `.mean(axis=(1, 3))` (at 32 or fewer XLA adds the two
+    rows' pairs first, and the last bit may differ)."""
+    h, w = img.shape
+    b = img[:h // 2 * 2, :w // 2 * 2].reshape(h // 2, 2, w // 2, 2)
+    return (((b[:, 0, :, 0] + b[:, 0, :, 1]) + b[:, 1, :, 0])
+            + b[:, 1, :, 1]) / 4.0
+
+
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
-    """Pyramid by 2 x 2 average pooling per level (an odd last row or
-    column is dropped). Each 2 x 2 block is summed row by row, left to
-    right, as XLA's CPU reduce adds it for levels wider than 32 pixels, so
-    such levels are bit-identical to the reference's (at 32 or fewer XLA
-    adds the two rows' pairs first, and the last bit may differ)."""
+    """Pyramid by 2 x 2 average pooling per level (mean_pool2)."""
     pyr = [img]
-    cur = img
     for _ in range(levels - 1):
-        h, w = cur.shape
-        b = cur[:h // 2 * 2, :w // 2 * 2].reshape(h // 2, 2, w // 2, 2)
-        cur = (((b[:, 0, :, 0] + b[:, 0, :, 1]) + b[:, 1, :, 0])
-               + b[:, 1, :, 1]) / 4.0
-        pyr.append(cur)
+        pyr.append(mean_pool2(pyr[-1]))
     return pyr
 
 

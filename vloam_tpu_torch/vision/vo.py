@@ -122,7 +122,6 @@ class VisualOdometry:
     def __init__(self, cfg, K, P_velo_to_img, device="cuda"):
         from ..lidar.loam_step import engine_device
 
-        features.check_vo_options(cfg)
         self.cfg = cfg
         self.device = engine_device(device)
 

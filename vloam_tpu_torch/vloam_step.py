@@ -18,10 +18,11 @@ the host: every lax.cond / jnp.where of the reference is a torch.where over
 results computed unconditionally, and the packed VLOAM_OUT_DIM rows stay on
 the device until ``VloamEngine.finish``.
 
-The VO options CLAHE, bucket NMS, LK flow matching and the low-texture
-fallback (LK flow re-matches a frame pair whose descriptor matches
-collapsed) run as the reference's; the other detectors and descriptors,
-FLANN and the engine's mesh argument raise NotImplementedError.
+Every VO option runs as the reference's: the detectors, the ZNCC and ORB
+descriptors, the BF and FLANN matchers with KNN or NN selection, CLAHE,
+bucket NMS, LK flow matching and the low-texture fallback (LK flow
+re-matches a frame pair whose descriptor matches collapsed). The engine's
+mesh argument raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -104,14 +105,14 @@ def _conjugate(q_a, t_a, q_x, t_x):
 class VisionState(NamedTuple):
     prev_kp: torch.Tensor  # [K, 2]
     prev_kp_mask: torch.Tensor  # [K]
-    prev_desc: torch.Tensor  # [K, P*P]
+    prev_desc: torch.Tensor  # [K, D]: D = P*P (ZNCC) or 256 (ORB)
     prev_img: torch.Tensor  # [H, W]
     prev_grid: DepthGrid
 
     @staticmethod
     def create(cfg, device) -> "VisionState":
         k = cfg.vo.max_keypoints
-        p = cfg.vo.descriptor_patch
+        d = features.descriptor_dim(cfg.vo)
         gw, gh = grid_shape(cfg.vo)
 
         def zeros(shape, dtype=torch.float32):
@@ -119,7 +120,7 @@ class VisionState(NamedTuple):
 
         return VisionState(
             prev_kp=zeros((k, 2)), prev_kp_mask=zeros((k,), torch.bool),
-            prev_desc=zeros((k, p * p)),
+            prev_desc=zeros((k, d)),
             prev_img=zeros((cfg.vo.img_height, cfg.vo.img_width)),
             prev_grid=DepthGrid(u=zeros((gw, gh)), v=zeros((gw, gh)),
                                 z=zeros((gw, gh)),
@@ -174,7 +175,6 @@ def _vision_frame_core(vstate: VisionState, scan, n_pts, image_u8, a_seed,
     grid and the VO solve from an explicit cam-frame seed. Returns (vstate',
     prior_q, prior_t, vo_ok, vo_out [9])."""
     vo = cfg.vo
-    features.check_vo_options(vo)
     dev = image_u8.device
     img = image_u8.to(torch.float32) / 255.0
     if vo.clahe:
@@ -448,7 +448,6 @@ class VloamEngine:
                  pack12: bool = False, map_callback=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("VloamEngine(mesh=...) is not ported")
-        features.check_vo_options(cfg.vo)
         self.cfg = cfg
         self.chunk = chunk
         self.device = engine_device(device)
