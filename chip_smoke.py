@@ -1,7 +1,8 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the LiDAR-only
 LOAM engine, the combined camera + LiDAR engine, the 4-stream lockstep
 batch engine, the host layer around them (command line, sequence runner,
-checkpoints, loop closure) and the per-stage host engine.
+checkpoints, loop closure), the per-stage host engine and the distributed
+(mesh) paths.
 
     python3 chip_smoke.py
 
@@ -127,6 +128,29 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         outliers, one set of 256 minimal samples drawn from a seeded CPU
         generator: inlier masks identical card vs CPU, R within 1e-3 rad
         and t within 1e-3 of the truth on both; time a call
+  M. the distributed paths (vloam_tpu_torch.parallel, torch.distributed):
+     2. LoamEngine(kitti_hdl64(), chunk=16, mesh=<one NCCL rank>,
+        mesh_window_rows=4096) over phase 5's drive: LO rows within 1e-5 of
+        phase 5's, MO within 0.01 m of them and < 0.15 m from ground truth,
+        peak active map rows within the window, 0 host syncs in the timed
+        frames, K1 / K2 / ring_min1 / row_gather launched and grid_probe not;
+        frames/s, launches and device time a frame (torch.profiler); the
+        MO difference from phase 5 frame by frame
+     1. the windows of M2's final map (_window_block: 4096 rows gathered by
+        row_gather from each grid's [2^17, W] block) bit-identical to the
+        plain gather's on the CPU; lidar/knn.masked_knn at that engine's
+        shapes (the last frame's 2048 corner and 6144 surf stack points
+        against those windows of 4096 x 32 and 4096 x 16 slots): indices
+        identical card vs CPU, device time a call, its launches and bound
+     3. the first 16 frames at 2 gloo ranks sharing the card (processes
+        started by parallel/launch.py; the ring hop through host memory):
+        MO within 0.01 m of M2, host syncs printed; with 2 or more cards
+        also min(4, cards) NCCL ranks
+     4. VloamEngine(mesh=<one NCCL rank>) over the first 16 frames: VO and
+        LO within 1e-5 of phase 8's, MO within 0.01 m
+     5. close_loops(mesh=<one NCCL rank>) on 14b's trajectory: 14d's loops,
+        poses within 1e-3 m; `python -m vloam_tpu_torch run --synthetic 12
+        --mesh 1` with no --device
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -1446,7 +1470,7 @@ def host_resume_phase(cfg, frames, outs_gpu) -> None:
         fail(f"resumed rows differ from the uninterrupted run by {diff}")
 
 
-def host_loop_phase(cfg, frames, res) -> None:
+def host_loop_phase(cfg, frames, res) -> dict:
     """14d: close_loops on 14b's MO trajectory (min_gap 8, radius 50) twice
     on the card (identical) and once on the CPU (within the parity test's
     1e-3 m / 1e-3 rad), the poses within 1 m of MO."""
@@ -1512,6 +1536,7 @@ def host_loop_phase(cfg, frames, res) -> None:
     if not moved < 1.0 or not card["loops"]:
         fail(f"loop closure moved the trajectory {moved} m or accepted no "
              "loop")
+    return card
 
 
 def _host_frames(frames, images) -> list[dict]:
@@ -2014,6 +2039,330 @@ def host_cli_viz_phase() -> None:
           f"{dt:.1f} s side by side: " + "; ".join(lines), flush=True)
 
 
+# ------------------------------------------------------------------ the mesh
+
+MESH_WINDOW = 4096  # window rows a rank, LoamEngine's default
+MESH_FRAMES = 16  # M3 and M4 drive the first 16 frames
+# the single-device paths against the mesh's: LO never touches the mesh;
+# MO within 1 cm, as tests/test_mesh_fused.py holds the reference's mesh
+MESH_TOL = {"LO": 1e-5, "MO": 1e-2}
+
+
+def mesh_launches(n: int, **more) -> dict:
+    """Launches of n frames of a mesh engine: scan registration and LO as
+    the single engine's; the mesh mapping chunk probes no grid (grid_probe
+    0) and gathers rows twice for the windows and twice for the inserts."""
+    return lidar_launches(n, grid_probe=0, row_gather=4 * n, **more)
+
+
+def _mo_gaps(rows, ref_rows) -> np.ndarray:
+    """The MO position difference frame by frame between two packed row
+    sets."""
+    return np.linalg.norm(rows[:, 18:21] - ref_rows[:len(rows), 18:21],
+                          axis=1)
+
+
+def _mesh_diffs(rows, ref_rows) -> tuple[float, float]:
+    """The largest LO row difference (f2f and world pose columns) and the
+    largest MO position difference between two packed row sets."""
+    lo = float(np.abs(rows[:, :14] - ref_rows[:len(rows), :14]).max())
+    return lo, float(_mo_gaps(rows, ref_rows).max())
+
+
+def mesh_engine_phase(cfg, frames, poses, outs5, mesh):
+    """M2: LoamEngine(kitti_hdl64(), chunk=16, mesh=<one NCCL rank>,
+    mesh_window_rows=4096) over phase 5's drive."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.lidar.loam_step import LoamEngine, unpack_outputs
+
+    eng = LoamEngine(cfg, chunk=CHUNK, mesh=mesh,
+                     mesh_window_rows=MESH_WINDOW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    for k in range(CHUNK):
+        eng.push_polar(frames[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, syncs = _sync_free(lambda k: eng.push_polar(frames[k]),
+                             range(CHUNK, N_FRAMES))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    clk = clocks()
+    outs = eng.finish()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if outs.shape != (N_FRAMES, 24) or not np.isfinite(outs).all():
+        fail(f"mesh outputs {outs.shape} not finite")
+    res = unpack_outputs(outs)
+    gt = np.stack([T[:3, 3] for T in poses])
+    err = float(np.linalg.norm(res["t_w_mo"] - gt, axis=1).max())
+    lo, mo = _mesh_diffs(outs, outs5)
+    active, cap = eng.window_active_rows
+    prof_eng = LoamEngine(cfg, chunk=PROFILE_FRAMES, mesh=mesh,
+                          mesh_window_rows=MESH_WINDOW)
+    prof = _profile(lambda k: prof_eng.push_polar(frames[k]), PROFILE_FRAMES)
+    prof_eng.finish()
+    n = N_FRAMES - CHUNK
+    print(f"[M2 mesh end to end] LoamEngine(kitti_hdl64, chunk {CHUNK}, mesh "
+          f"of {mesh.size} {mesh.backend} rank on {mesh.device}, "
+          f"mesh_window_rows {MESH_WINDOW}) over phase 5's {N_FRAMES} frames: "
+          f"{n / dt:.2f} frames/s over frames {CHUNK}-{N_FRAMES - 1} "
+          f"({dt * 1e3 / n:.2f} ms/frame, host enqueue "
+          f"{host * 1e3 / n:.2f} ms/frame); launches {launches}; "
+          f"{prof['launches']:.0f} kernel launches and "
+          f"{prof['device_ms']:.2f} ms device time a frame (torch.profiler "
+          f"over frames {PROFILE_FRAMES}-{2 * PROFILE_FRAMES - 1}, wall "
+          f"{prof['wall_ms']:.2f} ms); peak active map rows {active} of the "
+          f"window's {cap}; against phase 5: LO rows max |diff| {lo:.3g}, MO "
+          f"max diff {mo:.4f} m (frame by frame, mm: "
+          f"{' '.join(f'{g * 1e3:.2f}' for g in _mo_gaps(outs, outs5))}); "
+          f"MO max err vs GT {err:.4f} m; peak device "
+          f"memory {peak:.0f} MiB; host syncs in the timed frames "
+          f"{len(syncs)} {clk}", flush=True)
+    want = mesh_launches(N_FRAMES)
+    if launches != want:
+        fail(f"mesh kernel launch counts {launches}, want {want}")
+    if syncs:
+        fail(f"the mesh frame loop synchronized with the device: {syncs[:3]}")
+    if not (lo <= MESH_TOL["LO"] and mo < MESH_TOL["MO"]):
+        fail(f"the mesh engine left phase 5's rows: LO {lo}, MO {mo} m")
+    if not err < 0.15:
+        fail(f"mesh MO error {err} m >= 0.15 m")
+    if not 0 < active <= cap:
+        fail(f"peak active map rows {active} outside the window {cap}")
+    return outs, eng
+
+
+def mesh_knn_phase(cfg, eng, frame, mo_row) -> None:
+    """M1: the windows of M2's final map at the last frame's MO position
+    (_window_block: 4096 rows of 96 / 48 floats gathered from [2^17, W] by
+    row_gather) against the plain gather on the CPU, bit for bit; then
+    lidar/knn.masked_knn at the mesh engine's shapes, the last frame's
+    stacks against those windows: 2048 corner queries x 4096*32 slots, 6144
+    surf x 4096*16. Card against CPU: indices identical; device time a
+    call, its launches and bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vloam_tpu_torch.data.synthetic import hdl64_elevations
+    from vloam_tpu_torch.geometry import so3
+    from vloam_tpu_torch.lidar.knn import masked_knn
+    from vloam_tpu_torch.lidar.scan_registration import (polar_directions,
+                                                         register_scan_polar)
+    from vloam_tpu_torch.lidar.voxel import voxel_downsample
+    from vloam_tpu_torch.parallel.mesh_fused import _window_block
+    from vloam_tpu_torch.tools.timing import device_ms, knn_bound
+
+    m = cfg.mapping
+    elev = torch.tensor(np.radians(hdl64_elevations(64)),
+                        dtype=torch.float32, device="cuda")
+    feats = register_scan_polar(
+        torch.from_numpy(frame.astype(np.int32)).cuda(),
+        polar_directions(elev, N_AZ), cfg.lidar, cfg.scanreg)
+    q = torch.tensor(mo_row[14:18], device="cuda")
+    t = torch.tensor(mo_row[18:21], device="cuda")
+    cube = eng.state[1].cube
+    lines = []
+    for name, cloud, res, cap_q, grid in (
+            ("corner", feats.less_sharp, m.line_resolution,
+             m.corner_stack_cap, cube.corner),
+            ("surf", feats.less_flat, m.plane_resolution, m.surf_stack_cap,
+             cube.surf)):
+        xyz, _, _, _ = voxel_downsample(cloud.xyz, cloud.mask, res, cap_q)
+        qw = so3.quat_rotate(q, xyz) + t
+        pts, mask, n_act = _window_block(grid.pts, t, MESH_WINDOW)
+        # the window's row_gather launches against the plain gather (the
+        # wrapper takes it for CPU tensors): bit for bit
+        pts_c, mask_c, n_act_c = _window_block(grid.pts.cpu(), t.cpu(),
+                                               MESH_WINDOW)
+        win_same = (torch.equal(pts.cpu(), pts_c)
+                    and torch.equal(mask.cpu(), mask_c)
+                    and int(n_act) == int(n_act_c))
+        Q, C = qw.shape[0], pts.shape[0]
+        d, i = masked_knn(qw, pts, mask)
+        d_c, i_c = masked_knn(qw.cpu(), pts.cpu(), mask.cpu())
+        same = torch.equal(i.cpu(), i_c)
+        fin = torch.isfinite(d_c)
+        diff = float((d.cpu() - d_c)[fin].abs().max()) if fin.any() else 0.0
+        ms = device_ms(lambda: masked_knn(qw, pts, mask), runs=10, cold=False)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            masked_knn(qw, pts, mask)
+        launches = sum(e.count for e in prof.key_averages() if e.key.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel")))
+        bound, by = knn_bound(Q, C, 5)
+        lines.append(f"{name} window {MESH_WINDOW} x {grid.pts.shape[1]} "
+                     f"of [{grid.pts.shape[0]}, {grid.pts.shape[1]}] "
+                     f"({int(n_act)} active rows): points, mask and active "
+                     "rows " + ("bit-identical" if win_same else "DIFFER")
+                     + " card vs CPU gather; "
+                     f"{Q} x {C} ({int(mask.sum())} live): indices "
+                     + ("identical" if same else "DIFFER")
+                     + f" card vs CPU, max |d_sq| diff {diff:.3g} m^2; "
+                     f"{ms:.3f} ms a call on the card, {launches} kernel "
+                     f"launches a call; bound {bound:.4f} ms ({by})")
+        if not win_same:
+            fail(f"_window_block {name}: the card's window differs from the "
+                 "plain gather's")
+        if not same:
+            fail(f"masked_knn {name}: card and CPU indices differ")
+    print(f"[M1 masked_knn] 2 calls a grid a frame at one rank (2 rounds; "
+          f"x D shards at D ranks): " + "; ".join(lines), flush=True)
+
+
+def mesh_rank_main(backend: str, inp: str, out: str) -> None:
+    """One rank of M3 (run as `chip_smoke.py mesh-rank BACKEND IN OUT` by
+    parallel.launch): LoamEngine(kitti_hdl64, mesh) over the frames in IN,
+    the second half of them recorded for host syncs; rank 0 writes the rows
+    to OUT."""
+    from vloam_tpu_torch.config import kitti_hdl64
+    from vloam_tpu_torch.lidar.loam_step import LoamEngine
+    from vloam_tpu_torch.parallel.sharded import data_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = np.load(inp)
+    frames = [data[f"f{k}"] for k in range(len(data.files))]
+    mesh = data_mesh(device="cuda", backend=backend)
+    half = len(frames) // 2
+    eng = LoamEngine(kitti_hdl64(), chunk=half, mesh=mesh,
+                     mesh_window_rows=MESH_WINDOW)
+    for k in range(half):
+        eng.push_polar(frames[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, syncs = _sync_free(lambda k: eng.push_polar(frames[k]),
+                          range(half, len(frames)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rows = eng.finish()
+    if mesh.rank == 0:
+        np.savez(out, rows=rows, syncs=len(syncs), fps=half / dt,
+                 window=np.asarray(eng.window_active_rows),
+                 device=str(mesh.device))
+
+
+def mesh_ranks_phase(frames, outs_m2) -> None:
+    """M3: the first 16 frames at 2 ranks sharing the card under gloo (the
+    hop through host memory), against M2's rows; with 2 or more cards also
+    min(4, cards) NCCL ranks, one a card."""
+    import tempfile
+
+    from vloam_tpu_torch.parallel.launch import launch
+
+    runs = [("gloo", 2)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", min(4, torch.cuda.device_count())))
+    script = os.path.abspath(__file__)
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = os.path.join(tmp, "frames.npz")
+        np.savez(inp, **{f"f{k}": f
+                         for k, f in enumerate(frames[:MESH_FRAMES])})
+        for backend, n in runs:
+            out = os.path.join(tmp, f"{backend}.npz")
+            t0 = time.perf_counter()
+            rc = launch([script, "mesh-rank", backend, inp, out], n,
+                        timeout=600)
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"{n} {backend} ranks exited {rc}")
+            got = np.load(out)
+            lo, mo = _mesh_diffs(got["rows"], outs_m2)
+            active, cap = got["window"]
+            where = ("sharing " + str(got["device"]) if backend == "gloo"
+                     else "one a card")
+            half = MESH_FRAMES // 2
+            lines.append(
+                f"{n} {backend} ranks ({where}): {float(got['fps']):.2f} "
+                f"frames/s over frames {half}-{MESH_FRAMES - 1} on rank 0, "
+                f"{int(got['syncs']) / half:.2f} host syncs a frame there "
+                f"(not gated), peak "
+                f"active rows {active} of {cap}; against M2 LO max |diff| "
+                f"{lo:.3g}, MO max diff {mo:.4f} m; {wall:.1f} s with start-up")
+            if not (np.isfinite(got["rows"]).all()
+                    and got["rows"].shape == (MESH_FRAMES, 24)):
+                fail(f"{backend} ranks' rows {got['rows'].shape} not finite")
+            if not mo < MESH_TOL["MO"]:
+                fail(f"{n} {backend} ranks left M2's MO by {mo} m")
+    print("[M3 mesh ranks] LoamEngine(kitti_hdl64, mesh) over the first "
+          f"{MESH_FRAMES} frames: " + "; ".join(lines) + f" {clocks()}",
+          flush=True)
+
+
+def mesh_vloam_phase(cfg_v, frames, images, calib, res_v, mesh) -> None:
+    """M4: VloamEngine(kitti_hdl64 detach_VO_LO=False, chunk=16, mesh=<one
+    NCCL rank>) over the first 16 frames against phase 8's rows."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.vloam_step import VloamEngine, unpack_vloam_outputs
+
+    eng = VloamEngine(cfg_v, calib, chunk=MESH_FRAMES, mesh=mesh,
+                      mesh_window_rows=MESH_WINDOW)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    eng.push_polar(frames[0], images[0])  # uploads the ray geometry once
+    t0 = time.perf_counter()
+    _, syncs = _sync_free(lambda k: eng.push_polar(frames[k], images[k]),
+                          range(1, MESH_FRAMES))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    outs = eng.finish()
+    launches = dict(kernels.LAUNCHES)
+    res = unpack_vloam_outputs(outs, calib)
+    n = MESH_FRAMES
+    lo = float(np.abs(res["t_w_lo"] - res_v["t_w_lo"][:n]).max())
+    vo = float(np.abs(res["t_vo"] - res_v["t_vo"][:n]).max())
+    mo = float(np.linalg.norm(res["t_w_mo"] - res_v["t_w_mo"][:n],
+                              axis=1).max())
+    active, cap = eng.window_active_rows
+    print(f"[M4 mesh combined] VloamEngine(kitti_hdl64 detach_VO_LO=False, "
+          f"chunk {n}, mesh of {mesh.size} {mesh.backend} rank) over frames "
+          f"0-{n - 1}: {(n - 1) / dt:.2f} frames/s (frames 1-{n - 1}, one "
+          f"chunk); launches {launches}; against phase 8: VO max |diff| "
+          f"{vo:.3g} m, LO {lo:.3g} m, MO {mo:.4f} m; peak active rows "
+          f"{active} of {cap}; host syncs in frames 1-{n - 1} {len(syncs)} "
+          f"{clocks()}", flush=True)
+    want = mesh_launches(n, zncc_describe=n)
+    if launches != want:
+        fail(f"mesh combined launch counts {launches}, want {want}")
+    if syncs:
+        fail(f"the mesh combined engine synchronized: {syncs[:3]}")
+    if not (vo <= MESH_TOL["LO"] and lo <= MESH_TOL["LO"]
+            and mo < MESH_TOL["MO"]):
+        fail(f"the mesh combined engine left phase 8's rows: VO {vo}, LO "
+             f"{lo}, MO {mo} m")
+    if not 0 < active <= cap:
+        fail(f"peak active map rows {active} outside the window {cap}")
+
+
+def mesh_loop_phase(cfg, frames, res_host, card_14d, mesh) -> None:
+    """M5: close_loops(mesh=<one NCCL rank>) on 14b's trajectory against
+    14d's, then `python -m vloam_tpu_torch run --synthetic 12 --mesh 1` with
+    no --device."""
+    from vloam_tpu_torch.backend.loop_closure import close_loops
+    from vloam_tpu_torch.data.synthetic import pad_scan
+
+    q, t = res_host["raw"]["q_w_mo"], res_host["raw"]["t_w_mo"]
+    scans = [pad_scan(_xyz(f), cfg.lidar.max_points) for f in frames]
+    got = close_loops(q, t, scans.__getitem__, cfg, radius=50.0, min_gap=8,
+                      mesh=mesh)
+    dp = float(np.abs(got["poses"][:, 4:] - card_14d["poses"][:, 4:]).max())
+    t0 = time.perf_counter()
+    out = _cli("run", "--synthetic", "12", "--mesh", "1")
+    dt = time.perf_counter() - t0
+    said = [ln for ln in out.splitlines() if ln.startswith(
+        ("mesh mapping", "throughput", "MO "))]
+    mo = [json.loads(ln[3:]) for ln in said if ln.startswith("MO ")]
+    print(f"[M5 mesh loop closure and command line] close_loops(mesh=one "
+          f"rank) on 14b's MO: loops {got['loops']}, max diff from 14d's "
+          f"{dp:.3g} m; `run --synthetic 12 --mesh 1` (no --device) in "
+          f"{dt:.1f} s: {' | '.join(said)}", flush=True)
+    if got["loops"] != card_14d["loops"] or not dp < 1e-3:
+        fail(f"close_loops with a mesh left 14d's: {got['loops']}, {dp} m")
+    if len(mo) != 1 or not np.isfinite(mo[0]["ate_rmse_m"]) or not any(
+            ln.startswith("mesh mapping") for ln in said):
+        fail(f"the --mesh 1 command line printed {said}")
+
+
 def main() -> None:
     card = device_phase()
     build_phase()
@@ -2047,7 +2396,7 @@ def main() -> None:
     host_cli_phase(frames, poses, calib)
     res_host = host_combined_phase(cfg_v, frames, images, poses, calib)
     host_resume_phase(cfg, frames, outs_gpu)
-    host_loop_phase(cfg, frames, res_host)
+    loops = host_loop_phase(cfg, frames, res_host)
     host_frames = _host_frames(frames, images)
     res_he = host_engine_phase(cfg_v, host_frames, poses, calib, res_host)
     host_cpu_phase(cfg_v, host_frames, calib, res_he)
@@ -2058,6 +2407,20 @@ def main() -> None:
     option_engines_phase(cfg_v, frames, images, poses, calib, thr)
     batched_selection_phase(cfg, frames, poses)
     ransac_phase()
+    # the mesh: one NCCL rank on this card, in this process
+    from vloam_tpu_torch.parallel.sharded import data_mesh
+
+    t_mesh = time.perf_counter()
+    mesh = data_mesh()
+    outs_m2, eng_m2 = mesh_engine_phase(cfg, frames, poses, outs_gpu, mesh)
+    mesh_knn_phase(cfg, eng_m2, frames[N_FRAMES - 1], outs_m2[-1])
+    del eng_m2
+    mesh_ranks_phase(frames, outs_m2)
+    mesh_vloam_phase(cfg_v, frames, images, calib, res_v, mesh)
+    mesh_loop_phase(cfg, frames, res_host, loops, mesh)
+    torch.distributed.destroy_process_group()
+    print(f"[M] phases M1-M5 in {time.perf_counter() - t_mesh:.1f} s",
+          flush=True)
     # launches: each kernel's count over the run of the path that drives it,
     # with the counts set to 0 just before: the batch drive (phase 10), the
     # combined engine (phase 8) for K3, the ring-variants entry point (phase
@@ -2076,4 +2439,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["mesh-rank"]:
+        mesh_rank_main(*sys.argv[2:5])
+    else:
+        main()

@@ -241,10 +241,20 @@ def test_visual_odometry_matches_jax(drive, options):
 
 
 def test_pipeline_refuses_mesh(drive):
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tpipe.VloamPipeline(CFG, drive[0], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpipe.run_sequence(CFG, drive[0], [], mesh=object(), device="cpu")
+    """The host engine takes a mesh (its mapping stage distributed:
+    tests/test_torch_mesh.py runs it), on the mesh's own device only: a
+    mesh on the CPU with the card asked for is refused, nothing moves to
+    another device unasked."""
+    from vloam_tpu_torch.parallel.mesh_pipeline import MeshLaserMapping
+    from vloam_tpu_torch.parallel.sharded import data_mesh
+
+    mesh = data_mesh(device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        tpipe.VloamPipeline(CFG, drive[0], mesh=mesh, device="cuda")
+    with pytest.raises(ValueError, match="mesh"):
+        tpipe.run_sequence(CFG, drive[0], [], mesh=mesh, device="cuda")
+    pipe = tpipe.VloamPipeline(CFG, drive[0], mesh=mesh, device="cpu")
+    assert isinstance(pipe.mo, MeshLaserMapping)
 
 
 def test_renderers_match_reference(drive):

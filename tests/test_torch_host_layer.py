@@ -497,8 +497,12 @@ def test_pose_graph_matches_the_reference():
     # the same result on a second run: every node sum adds in one order
     again = tpg.optimize_pose_graph(gt, gn_iters=6, cg_iters=120)
     assert torch.equal(got, again)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpg.optimize_pose_graph(gt, mesh=object())
+    # edge-sharded over a one-rank mesh: the same sums, the same poses
+    from vloam_tpu_torch.parallel.sharded import data_mesh
+
+    mesh = data_mesh(device="cpu")
+    assert torch.equal(tpg.optimize_pose_graph(
+        tpg.shard_graph(gt, mesh), mesh=mesh, gn_iters=6, cg_iters=120), got)
 
 
 def test_pose_graph_jacobian_matches_float64_jacfwd(rng):
@@ -598,8 +602,16 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="is_available"):
         tlc.match_pair(np.zeros((8, 3), np.float32), 0,
                        np.zeros((8, 3), np.float32), 0, np.eye(4), cfg)
+    # a mesh runs on its own device (a CPU mesh with the card asked for is
+    # refused) and refuses checkpoints, as the reference's
+    from vloam_tpu_torch.parallel.sharded import data_mesh
+
+    mesh = data_mesh(device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        run_sequence_fused(cfg, calib, [], lidar_only=True, mesh=mesh)
     with pytest.raises(NotImplementedError, match="mesh"):
-        run_sequence_fused(cfg, calib, [], lidar_only=True, mesh=object())
+        run_sequence_fused(cfg, calib, [], lidar_only=True, mesh=mesh,
+                           save_state_path="unused.npz", device="cpu")
     out = run_sequence_fused(cfg, calib, [], lidar_only=True, device="cpu")
     assert out["LO"].shape == (0, 3, 4)
     # the host engine and its stages

@@ -19,8 +19,8 @@ seeded from the same frame's VO).
   [K, p*p] descriptors whatever the descriptor, so its ORB engine runs only
   at p = 16 (16 * 16 = 256 bits); the test runs both engines there.
 - the engine's host side: off-size images are fitted, the polar FOV wedge
-  is checked, the mesh argument raises, and the new modules import neither
-  jax nor the JAX package.
+  is checked, a mesh on another device than asked for is refused, and the
+  new modules import neither jax nor the JAX package.
 The four VO options CLAHE, bucket NMS, LK flow matching and the low-texture
 fallback are held to the JAX engine in tests/test_torch_optical_flow.py.
 """
@@ -206,11 +206,15 @@ def test_engine_fits_off_size_images(xyz_drive):
 
 def test_engine_rejects_what_is_not_ported(xyz_drive):
     calib = xyz_drive[0]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tvs.VloamEngine(CFG, calib, mesh=object(), device="cpu")
-    # the LiDAR-only engine refuses the mesh the same way
-    with pytest.raises(NotImplementedError, match="mesh"):
-        LoamEngine(CFG, mesh=object(), device="cpu")
+    # a mesh runs on its own device: a CPU mesh with the card asked for is
+    # refused by both engines (tests/test_torch_mesh.py runs them on one)
+    from vloam_tpu_torch.parallel.sharded import data_mesh
+
+    mesh = data_mesh(device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        tvs.VloamEngine(CFG, calib, mesh=mesh, device="cuda")
+    with pytest.raises(ValueError, match="mesh"):
+        LoamEngine(CFG, mesh=mesh, device="cuda")
     # a camera yawed outside the decoded polar wedge is refused loudly
     yawed = type(calib)()
     yawed.__dict__.update(calib.__dict__)

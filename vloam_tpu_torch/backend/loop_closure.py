@@ -17,7 +17,9 @@ from scipy.spatial.transform import Rotation as R
 from ..lidar.loam_step import engine_device
 from ..lidar.odometry import solve_lo
 from ..lidar.scan_registration import register_scan
-from ..parallel.pose_graph import PoseGraph, optimize_pose_graph
+from ..parallel.pose_graph import (PoseGraph, optimize_pose_graph,
+                                   shard_graph)
+from ..parallel.sharded import mesh_device
 
 
 def find_loop_candidates(
@@ -87,10 +89,11 @@ def close_loops(
 ) -> dict:
     """Optimize the trajectory with detected loop closures. Returns
     {"poses": [N,7], "loops": [(i, j), ...]}. The scan matching and the
-    pose graph run on `device` (the card by default); mesh: not ported."""
-    if mesh is not None:
-        raise NotImplementedError("close_loops(mesh=...) is not ported")
-    dev = engine_device(device)
+    pose graph run on `device` (the card by default). mesh: a
+    parallel.sharded.Mesh whose every rank calls with the same trajectory:
+    each matches the loop candidates, and the pose graph is solved with
+    its edges sharded over the ranks (on each rank's mesh.device)."""
+    dev = engine_device(device) if mesh is None else mesh_device(mesh, device)
     n = len(traj_t)
     poses = np.concatenate([traj_q, traj_t], axis=1)
 
@@ -136,6 +139,8 @@ def close_loops(
         edge_i=torch.tensor(edges_i, dtype=torch.int64, device=dev),
         edge_j=torch.tensor(edges_j, dtype=torch.int64, device=dev),
         meas=f32(np.stack(meas)), weight=f32(weights))
+    if mesh is not None:
+        graph = shard_graph(graph, mesh)
     cg = max(64, 3 * n)
-    opt = optimize_pose_graph(graph, gn_iters=6, cg_iters=cg)
+    opt = optimize_pose_graph(graph, mesh=mesh, gn_iters=6, cg_iters=cg)
     return {"poses": opt.cpu().numpy(), "loops": loops}

@@ -8,6 +8,11 @@ results/<run>/{VO,LO,MO}{0,1}.txt layout, and progress goes to stdout.
 --optical-flow matches by LK flow in either engine. Everything runs on the
 card unless --device cpu is given.
 
+--mesh N runs the mapping stage as distributed BA over N ranks
+(parallel/): N processes started by parallel/launch.py, NCCL with one rank
+a card under --device cuda (N visible cards needed), gloo under --device
+cpu; one rank runs in this process. Rank 0 writes the files and prints.
+
 Usage:
   python -m vloam_tpu_torch run --synthetic 20 --out results/synth
   python -m vloam_tpu_torch run --odometry-root /data/kitti --seq 00 \\
@@ -16,23 +21,19 @@ Usage:
       --date 2011_09_26 --drive 0001 --device cpu
   python -m vloam_tpu_torch run --synthetic 12 --mode combined \\
       --engine host --viz results/viz --optical-flow
+  python -m vloam_tpu_torch run --synthetic 12 --device cpu --mesh 2
   python -m vloam_tpu_torch eval --gt gt.txt --pred results/synth/MO1.txt
-
-Not ported yet, refused with an error that names the ROADMAP item (queue 1)
-that ports it: --mesh ("Distributed").
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+from pathlib import Path
 
 import numpy as np
-
-_NOT_PORTED = {
-    "mesh": ("--mesh", "Distributed"),
-}
 
 
 def _add_run(sub):
@@ -90,7 +91,13 @@ def _add_run(sub):
                         "publisher analogue; fused engine only, the host "
                         "engine ignores it)")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="distributed mapping over N devices (not ported)")
+                   help="run the mapping stage as distributed BA over N "
+                        "ranks (sharded scan stacks + map blocks, windowed "
+                        "ring k-NN, all-reduced normal equations): with "
+                        "--engine fused the mesh mapping chunk inside the "
+                        "engines, with --engine host MeshLaserMapping. "
+                        "NCCL, one rank a card, under --device cuda; gloo "
+                        "ranks under --device cpu")
     p.add_argument("--reference-exact", action="store_true",
                    help="roll every accuracy-motivated default divergence "
                         "back to the reference's values "
@@ -114,11 +121,7 @@ def _add_eval(sub):
     p.add_argument("--pred", required=True)
 
 
-def _refuse_unported(ap, args) -> None:
-    for attr, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, attr):
-            ap.error(f"{flag} is not ported to vloam_tpu_torch yet (ROADMAP "
-                     f"queue 1, \"{item}\"); run it with python -m vloam_tpu")
+def _refuse_unsupported(ap, args) -> None:
     if args.polar_ingest and args.engine == "host":
         ap.error("--polar-ingest feeds range images, which only the fused "
                  "engine reads; the host engine reads xyz points (drop "
@@ -155,7 +158,7 @@ def _dataset_get_points(ds, start_frame, cfg):
     return get_points
 
 
-def _run_loop_closure(result, calib, cfg, get_points, args):
+def _run_loop_closure(result, calib, cfg, get_points, args, mesh=None):
     """Post-sequence loop closure + pose-graph re-optimization of the MO
     trajectory (the reference drifts without bound)."""
     from scipy.spatial.transform import Rotation as Rot
@@ -176,7 +179,8 @@ def _run_loop_closure(result, calib, cfg, get_points, args):
     t_w = W[:, :3, 3]
 
     res = close_loops(q_w, t_w, get_points, cfg, radius=args.loop_radius,
-                      min_gap=args.loop_min_gap, device=args.device)
+                      min_gap=args.loop_min_gap, mesh=mesh,
+                      device=args.device)
     print(f"loop closure: {len(res['loops'])} loop(s) accepted "
           f"{res['loops']}")
     opt = np.asarray(res["poses"], np.float64)
@@ -185,8 +189,6 @@ def _run_loop_closure(result, calib, cfg, get_points, args):
     traj = np.einsum("ij,njk->nik", inv_T(Xo[0]), Xo)[:, :3, :]
     result["MO_loop"] = traj
     if args.out is not None:
-        from pathlib import Path
-
         suffix = str(int(cfg.detach_VO_LO))
         with open(Path(args.out) / f"MO{suffix}_loop.txt", "w") as f:
             for T34 in traj:
@@ -199,8 +201,6 @@ def _compare_against_reference(result, cfg, ref_dir):
     src/vloam_main/results/<date>_drive_<seq>/, pose format
     vloam_tf.cpp:93-99). Streams whose file is absent are skipped. Returns
     {stream: metrics-dict} and prints one JSON line per stream."""
-    from pathlib import Path
-
     from .eval.kitti_metrics import kitti_metrics, load_kitti_poses
 
     suffix = str(int(cfg.detach_VO_LO))
@@ -264,6 +264,18 @@ def _synthetic_setup(n, cfg, mode):
     return calib, frames(), get_points, gt
 
 
+def _launch_ranks(n: int, argv: list[str]) -> int:
+    """Run this command line as n ranks (parallel/launch.py) and return the
+    first nonzero exit code, or 0."""
+    from .parallel.launch import launch
+
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent.parent)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return launch(["-m", "vloam_tpu_torch", *argv], n, env=env)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="vloam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -279,9 +291,21 @@ def main(argv=None):
         return 0
 
     # cmd == run
-    _refuse_unported(ap, args)
+    _refuse_unsupported(ap, args)
     import torch
 
+    if args.mesh:
+        if args.init_state or args.save_state:
+            ap.error("--mesh shards the map, which checkpoints do not hold "
+                     "(as in the reference); drop --init-state / "
+                     "--save-state")
+        if args.device == "cuda" and torch.cuda.device_count() < args.mesh:
+            ap.error(f"--mesh {args.mesh} under --device cuda needs "
+                     f"{args.mesh} visible cards (one NCCL rank a card); "
+                     f"{torch.cuda.device_count()} visible")
+        if args.mesh > 1 and "RANK" not in os.environ:
+            return _launch_ranks(args.mesh, sys.argv[1:] if argv is None
+                                 else argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda (the default) needs a GPU and "
                  "torch.cuda.is_available() is false; pass --device cpu to "
@@ -356,6 +380,16 @@ def main(argv=None):
 
     from . import kernels
 
+    mesh = None
+    if args.mesh:
+        from .parallel.sharded import data_mesh
+
+        mesh = data_mesh(device=args.device)
+        if mesh.size != args.mesh:
+            ap.error(f"--mesh {args.mesh}, but the process group has "
+                     f"{mesh.size} ranks")
+        if mesh.rank != 0:  # rank 0 alone writes files
+            args.out = None
     kernels.reset_launches()
     ctx = None
     if args.profile:
@@ -369,11 +403,12 @@ def main(argv=None):
                 cfg, calib, frame_iter, out_dir=args.out, chunk=args.chunk,
                 lidar_only=(args.mode == "lidar-only"), verbose=args.verbose,
                 save_map=args.save_map, init_state=args.init_state,
-                save_state_path=args.save_state, device=args.device)
+                save_state_path=args.save_state, mesh=mesh,
+                device=args.device)
         else:
             result = run_sequence(cfg, calib, frame_iter, out_dir=args.out,
                                   progress=progress, viz_dir=args.viz,
-                                  device=args.device)
+                                  mesh=mesh, device=args.device)
     finally:
         if ctx is not None:
             ctx.__exit__(None, None, None)
@@ -386,7 +421,7 @@ def main(argv=None):
     if args.verbose and args.device == "cuda":
         print(f"kernel launches: {json.dumps(kernels.LAUNCHES)}")
     if args.loop_close and "MO" in result and len(result["MO"]) > 2:
-        _run_loop_closure(result, calib, cfg, get_points, args)
+        _run_loop_closure(result, calib, cfg, get_points, args, mesh)
     if args.compare_ref:
         _compare_against_reference(result, cfg, args.compare_ref)
     if gt_poses is not None:

@@ -8,9 +8,15 @@ These helpers move a LoamState, a BatchLoamState, or a VloamEngine's
 neither package's classes from the other side: a JAX state whose leaves were
 made numpy (``jax.tree.map(np.asarray, state)``) goes in, the port's state
 comes out, and the reverse gives the port's state with numpy leaves.
+
+For a mesh of D ranks, a MapState splits into the ranks' blocks of the map
+rows and joins back (the reference holds it as one array sharded over its
+devices), and a pose graph splits into the ranks' edge shards.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -20,6 +26,8 @@ from .lidar.gridmap import FeatureGrid
 from .lidar.loam_step import BatchLoamState, LoamState
 from .lidar.mapping import GridMap
 from .lidar.ring_assoc import RingSlab
+from .parallel.mesh_fused import shard_map_state
+from .parallel.pose_graph import PoseGraph, shard_graph
 from .vision.depth_map import DepthGrid
 from .vloam_step import MapState, VisionLoState, VisionState
 
@@ -121,3 +129,48 @@ def vloam_state_to_numpy(vstate: VisionLoState, mstate: MapState):
     """The port's (VisionLoState, MapState) -> the same trees with numpy
     leaves (field for field the JAX reference's layout)."""
     return _tree_to_numpy(vstate), _tree_to_numpy(mstate)
+
+
+def _map_state_from(ms, device) -> MapState:
+    return MapState(cube=_cube_from(ms.cube, device),
+                    **{k: torch.tensor(np.asarray(getattr(ms, k)),
+                                       device=device) for k in _MAP_POSES})
+
+
+def split_map_state(tree, size: int, device) -> list[MapState]:
+    """A MapState with array leaves and whole grids (the JAX reference's
+    field names) -> the port's MapState of each of `size` ranks, rank r
+    holding rows [r nb/size, (r+1) nb/size) of each grid
+    (parallel.mesh_fused.shard_map_state)."""
+    whole = _map_state_from(tree, device)
+    return [shard_map_state(whole, SimpleNamespace(rank=r, size=size))
+            for r in range(size)]
+
+
+def join_map_states(states: list[MapState]) -> MapState:
+    """The ranks' MapStates (in rank order) -> one MapState with numpy
+    leaves and whole grids; the replicated fields are rank 0's."""
+    first = _tree_to_numpy(states[0])
+
+    def grid(name):
+        g = getattr(first.cube, name)
+        pts = np.concatenate([getattr(s.cube, name).pts.cpu().numpy()
+                              for s in states])
+        return FeatureGrid(pts=pts, n_live=g.n_live)
+
+    return first._replace(cube=GridMap(grid("corner"), grid("surf"),
+                                       first.cube.center))
+
+
+def split_pose_graph(graph, size: int, device) -> list[PoseGraph]:
+    """A pose graph with array leaves (the JAX reference's PoseGraph) -> the
+    port's graph of each of `size` ranks: the poses whole, the edges in rank
+    shards (parallel.pose_graph.shard_graph: padded with weight 0)."""
+    def t(x, dtype=None):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    whole = PoseGraph(t(graph.poses), t(graph.edge_i, torch.int64),
+                      t(graph.edge_j, torch.int64), t(graph.meas),
+                      t(graph.weight))
+    return [shard_graph(whole, SimpleNamespace(rank=r, size=size))
+            for r in range(size)]

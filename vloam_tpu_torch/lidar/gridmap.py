@@ -147,6 +147,15 @@ def grid_evict(g: FeatureGrid, center: torch.Tensor,
     return FeatureGrid(pts=pts, n_live=torch.sum(keep, dtype=torch.int32))
 
 
+def grid_flat_points(g: FeatureGrid):
+    """Every map slot as flat points [n_buckets*cap, 3] (bucket, then
+    slot) and their live mask: the map-blocks view that the host engine's
+    mesh path shards over its ranks (parallel/mesh_pipeline.py)."""
+    cap = g.cap
+    pts = g.pts.reshape(-1, 3, cap).transpose(1, 2).reshape(-1, 3)
+    return pts, pts[:, 0] < SENTINEL * 0.5
+
+
 def grid_export(g: FeatureGrid, max_points: int | None = None):
     """The live points as a numpy [M, 3] float32 array in the reference's
     row order (bucket, then slot): masked on the device, then one download

@@ -1,6 +1,7 @@
 """Device-resident LOAM step: scanreg + LO + MO per frame (port of
-vloam_tpu/lidar/loam_step.py, single-device main path and the lockstep
-batch engine).
+vloam_tpu/lidar/loam_step.py: the single-device main path, the lockstep
+batch engine, and with a mesh the scanreg + LO half-program ahead of the
+sharded mapping chunk, parallel/mesh_fused.py).
 
 All recurrent state (last feature slabs, f2f/world poses, the grid map, the
 odom->map offset) stays on the device as a LoamState of tensors. A chunk of
@@ -92,35 +93,12 @@ def loam_frame_step_feats(state: LoamState, feats, prior_q, prior_t,
     out = [q_f2f(4), t_f2f(3), q_w_lo(4), t_w_lo(3), q_w_mo(4), t_w_mo(3),
            n_corner_corr, n_plane_corr, mapped_flag]."""
     dev = state.q_w.device
-    initialized = state.frame_idx > 0
-
     q0 = torch.where(use_prior, prior_q, state.q_f2f)
     t0 = torch.where(use_prior, prior_t, state.t_f2f)
-
-    # The LO solve runs on frame 0 too: its "last" slabs are all SENTINEL,
-    # every association fails the 25 m^2 gate, all IRLS weights are zero
-    # and the solve returns its seed — the select reproduces the skip.
-    q_s, t_s, n_c, n_s = solve_lo(feats.sharp, feats.flat, state.corner_last,
-                                  state.surf_last, q0, t0, cfg.lo)
-    q = torch.where(initialized, q_s, so3.identity_quat(dev))
-    t = torch.where(initialized, t_s, 0.0)
-    n_c = torch.where(initialized, n_c, 0)
-    n_s = torch.where(initialized, n_s, 0)
-
-    # world accumulation (reference laser_odometry.cpp:477-478)
-    q_w = torch.where(initialized,
-                      so3.quat_normalize(so3.quat_multiply(state.q_w, q)),
-                      state.q_w)
-    t_w = torch.where(initialized, state.t_w + so3.quat_rotate(state.q_w, t),
-                      state.t_w)
+    q, t, n_c, n_s, q_w, t_w, (c_xyz, c_m, s_xyz, s_m) = _lo_step(
+        state, feats, q0, t0, cfg)
 
     # ---- mapping ----
-    c_xyz, _, _, c_m = voxel_downsample(
-        feats.less_sharp.xyz, feats.less_sharp.mask,
-        cfg.mapping.line_resolution, cfg.mapping.corner_stack_cap)
-    s_xyz, _, _, s_m = voxel_downsample(
-        feats.less_flat.xyz, feats.less_flat.mask,
-        cfg.mapping.plane_resolution, cfg.mapping.surf_stack_cap)
     q_pred = so3.quat_normalize(so3.quat_multiply(state.q_wmap_wodom, q_w))
     t_pred = state.t_wmap_wodom + so3.quat_rotate(state.q_wmap_wodom, t_w)
 
@@ -154,6 +132,37 @@ def loam_frame_step_feats(state: LoamState, feats, prior_q, prior_t,
     counts = torch.stack([n_c, n_s, mapped.to(n_c.dtype)]).to(torch.float32)
     out = torch.cat([q, t, q_w, t_w, q_m, t_m, counts]).to(torch.float32)
     return new_state, out
+
+
+def _lo_step(st, feats, q0, t0, cfg):
+    """LO of one frame against st's last feature slabs (st: a LoamState or
+    a LoChunkState) from the seed (q0, t0), its LO world pose, and the
+    frame's voxel-downsampled mapping stacks. Returns (q_f2f, t_f2f,
+    n_corner, n_surf, q_w, t_w, (c_xyz, c_m, s_xyz, s_m))."""
+    dev = st.q_w.device
+    initialized = st.frame_idx > 0
+    # The LO solve runs on frame 0 too: its "last" slabs are all SENTINEL,
+    # every association fails the 25 m^2 gate, all IRLS weights are zero
+    # and the solve returns its seed — the select reproduces the skip.
+    q_s, t_s, n_c, n_s = solve_lo(feats.sharp, feats.flat, st.corner_last,
+                                  st.surf_last, q0, t0, cfg.lo)
+    q = torch.where(initialized, q_s, so3.identity_quat(dev))
+    t = torch.where(initialized, t_s, 0.0)
+    n_c = torch.where(initialized, n_c, 0)
+    n_s = torch.where(initialized, n_s, 0)
+    # world accumulation (reference laser_odometry.cpp:477-478)
+    q_w = torch.where(initialized,
+                      so3.quat_normalize(so3.quat_multiply(st.q_w, q)),
+                      st.q_w)
+    t_w = torch.where(initialized, st.t_w + so3.quat_rotate(st.q_w, t),
+                      st.t_w)
+    c_xyz, _, _, c_m = voxel_downsample(
+        feats.less_sharp.xyz, feats.less_sharp.mask,
+        cfg.mapping.line_resolution, cfg.mapping.corner_stack_cap)
+    s_xyz, _, _, s_m = voxel_downsample(
+        feats.less_flat.xyz, feats.less_flat.mask,
+        cfg.mapping.plane_resolution, cfg.mapping.surf_stack_cap)
+    return q, t, n_c, n_s, q_w, t_w, (c_xyz, c_m, s_xyz, s_m)
 
 
 def _dequantize(scans: torch.Tensor, scale: float) -> torch.Tensor:
@@ -192,6 +201,78 @@ def loam_run_chunk_polar(state: LoamState, ranges: torch.Tensor,
                                            prior_t[f], use_prior[f], cfg)
         outs.append(out)
     return state, torch.stack(outs)
+
+
+class LoChunkState(NamedTuple):
+    """Recurrent state of the LiDAR-only scanreg + LO half-program, run
+    apart from the mapping stage when that runs sharded over a mesh
+    (parallel/mesh_fused.py). vloam_step.VisionLoState without the vision
+    buffers."""
+
+    corner_last: RingSlab
+    surf_last: RingSlab
+    q_f2f: torch.Tensor
+    t_f2f: torch.Tensor
+    q_w: torch.Tensor
+    t_w: torch.Tensor
+    frame_idx: torch.Tensor
+
+    @staticmethod
+    def create(cfg, device) -> "LoChunkState":
+        sr = cfg.scanreg
+        S = cfg.lidar.n_scans
+        zeros3 = torch.zeros(3, dtype=torch.float32, device=device)
+        return LoChunkState(
+            corner_last=RingSlab.empty(S, sr.less_sharp_cap // S, device),
+            surf_last=RingSlab.empty(S, sr.less_flat_cap // S, device),
+            q_f2f=so3.identity_quat(device), t_f2f=zeros3,
+            q_w=so3.identity_quat(device), t_w=zeros3.clone(),
+            frame_idx=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _lo_frame(st: LoChunkState, feats, cfg):
+    """Scan features -> LO f2f, the LO world pose and the voxel-downsampled
+    mapping stacks: the first half of loam_frame_step_feats, without the
+    mapping solve. Returns (st', out [16] = [q_f2f, t_f2f, q_w, t_w,
+    n_corner, n_surf], (c_xyz, c_m, s_xyz, s_m))."""
+    q, t, n_c, n_s, q_w, t_w, stacks = _lo_step(st, feats, st.q_f2f,
+                                                st.t_f2f, cfg)
+    new_st = LoChunkState(
+        corner_last=feats.less_sharp_slab, surf_last=feats.less_flat_slab,
+        q_f2f=q, t_f2f=t, q_w=q_w, t_w=t_w, frame_idx=st.frame_idx + 1)
+    out = torch.cat([q, t, q_w, t_w,
+                     torch.stack([n_c, n_s]).to(torch.float32)])
+    return new_st, out.to(torch.float32), stacks
+
+
+def _lo_chunk(state: LoChunkState, frame_feats, cfg):
+    outs, stacks = [], []
+    for feats in frame_feats:
+        state, out, st = _lo_frame(state, feats, cfg)
+        outs.append(out)
+        stacks.append(st)
+    return (state, torch.stack(outs),
+            tuple(torch.stack(x) for x in zip(*stacks)))
+
+
+def lo_run_chunk(state: LoChunkState, scans: torch.Tensor,
+                 n_pts: torch.Tensor, cfg, scale: float = 1.0):
+    """scanreg + LO over F frames from xyz buffers (no mapping). Returns
+    (state', outs [F, 16], stacks (c_xyz, c_m, s_xyz, s_m) of [F, ...])."""
+    scans = _dequantize(scans, scale)
+    return _lo_chunk(state, (register_scan(scans[f], n_pts[f], cfg.lidar,
+                                           cfg.scanreg)
+                             for f in range(scans.shape[0])), cfg)
+
+
+def lo_run_chunk_polar(state: LoChunkState, ranges: torch.Tensor,
+                       dirs: torch.Tensor, cfg, scale: float = 0.005,
+                       packed: bool = False):
+    """Polar-ingest scanreg + LO chunk (no mapping); ranges and dirs as
+    loam_run_chunk_polar's."""
+    return _lo_chunk(state, (register_scan_polar(
+        unpack12(r) if packed else r, dirs, cfg.lidar, cfg.scanreg, scale)
+        for r in ranges), cfg)
 
 
 def engine_device(device) -> torch.device:
@@ -262,19 +343,39 @@ class LoamEngine:
     chunk that reaches every cfg.mapping.map_pub_number frames with the
     accumulated map (the /laser_cloud_map publisher analogue, reference
     laser_mapping.cpp:778-793); each call downloads the map, a host sync
-    between chunks. mesh: not ported (raises NotImplementedError)."""
+    between chunks.
+    mesh: a parallel.sharded.Mesh (data_mesh()): every rank of it builds the
+    same engine and pushes the same frames; scanreg + LO run whole on each
+    rank and the mapping stage runs as distributed BA over the mesh
+    (parallel/mesh_fused.py: map blocks and scan stacks sharded, windowed
+    ring k-NN, all-reduced normal equations) on the rank's mesh.device.
+    `window_active_rows` then reports (peak active map rows, the window's
+    rows over all ranks) of the frames run so far (a host read);
+    map_callback gets the whole map
+    gathered from the ranks (a collective: pass one on every rank or on
+    none)."""
 
     def __init__(self, cfg, chunk: int = 8, quantize_mm: float = 0.0,
                  device="cuda", pack12: bool = False, map_callback=None,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("LoamEngine(mesh=...) is not ported")
+                 mesh=None, mesh_window_rows: int = 4096):
         self.cfg = cfg
         self.chunk = chunk
         self.quantize_mm = quantize_mm
-        self.device = engine_device(device)
         self.pack12 = pack12
-        self.state = LoamState.create(cfg, self.device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = engine_device(device)
+            self.state = LoamState.create(cfg, self.device)
+        else:
+            from ..parallel.mesh_fused import MeshMappingChunk
+            from ..parallel.sharded import mesh_device
+            from ..vloam_step import MapState
+
+            self.device = mesh_device(mesh, device)
+            self._mesh_chunk = MeshMappingChunk(mesh, cfg, mesh_window_rows)
+            self.state = (LoChunkState.create(cfg, self.device),
+                          self._mesh_chunk.shard(
+                              MapState.create(cfg, self.device)))
         self._outs: list[torch.Tensor] = []
         self._pending_scans: list[np.ndarray] = []
         self._pending_n: list[int] = []
@@ -285,11 +386,18 @@ class LoamEngine:
         self._frames_done = 0
         self._next_pub = cfg.mapping.map_pub_number
 
+    @property
+    def window_active_rows(self) -> tuple[int, int]:
+        return ((0, 0) if self.mesh is None
+                else self._mesh_chunk.window_active_rows)
+
     def _after_chunk(self, n_frames: int):
         self._frames_done += n_frames
         if (self.map_callback is not None
                 and self._frames_done >= self._next_pub):
-            corner, surf = export_map_points(self.state.cube)
+            cube = (self.state.cube if self.mesh is None
+                    else self._mesh_chunk.whole_map(self.state[1].cube))
+            corner, surf = export_map_points(cube)
             self.map_callback(self._frames_done, corner, surf)
             while self._next_pub <= self._frames_done:
                 self._next_pub += self.cfg.mapping.map_pub_number
@@ -334,10 +442,15 @@ class LoamEngine:
             return
         ranges = _upload_polar(np.stack(self._pending_polar), self.device)
         self._pending_polar = []
-        pq, pt, up = self._priors(ranges.shape[0])
-        self.state, outs = loam_run_chunk_polar(
-            self.state, ranges, self._dirs, pq, pt, up, self.cfg,
-            self._polar_scale, packed=self.pack12)
+        if self.mesh is not None:
+            outs = self._run_mesh(lo_run_chunk_polar, ranges, self._dirs,
+                                  self.cfg, self._polar_scale,
+                                  packed=self.pack12)
+        else:
+            pq, pt, up = self._priors(ranges.shape[0])
+            self.state, outs = loam_run_chunk_polar(
+                self.state, ranges, self._dirs, pq, pt, up, self.cfg,
+                self._polar_scale, packed=self.pack12)
         self._outs.append(outs)
         self._after_chunk(ranges.shape[0])
 
@@ -347,11 +460,28 @@ class LoamEngine:
         scans = _upload(np.stack(self._pending_scans), self.device)
         ns = _upload(np.asarray(self._pending_n, np.int64), self.device)
         self._pending_scans, self._pending_n = [], []
-        pq, pt, up = self._priors(scans.shape[0])
-        self.state, outs = loam_run_chunk(self.state, scans, ns, pq, pt, up,
-                                          self.cfg, self.quantize_mm / 1000.0)
+        scale = self.quantize_mm / 1000.0
+        if self.mesh is not None:
+            outs = self._run_mesh(lo_run_chunk, scans, ns, self.cfg, scale)
+        else:
+            pq, pt, up = self._priors(scans.shape[0])
+            self.state, outs = loam_run_chunk(self.state, scans, ns, pq, pt,
+                                              up, self.cfg, scale)
         self._outs.append(outs)
         self._after_chunk(scans.shape[0])
+
+    def _run_mesh(self, lo_fn, *args, **kw):
+        """Mesh mode: the scanreg + LO chunk, then the mesh mapping chunk;
+        assembles the OUT_DIM rows as the reference's (loam_step.py:302-314).
+        """
+        lo_state, map_state = self.state
+        lo_state, lo_out, stacks = lo_fn(lo_state, *args, **kw)
+        map_state, mo_out = self._mesh_chunk(map_state, *stacks,
+                                             lo_out[:, 7:11],
+                                             lo_out[:, 11:14])
+        self.state = (lo_state, map_state)
+        return torch.cat([lo_out[:, :14], mo_out[:, :7], lo_out[:, 14:16],
+                          mo_out[:, 7:8]], dim=1)
 
     def finish(self) -> np.ndarray:
         """[N, OUT_DIM] packed results (one download)."""

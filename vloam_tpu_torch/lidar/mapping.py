@@ -87,6 +87,12 @@ def corner_fit(p_w, stack_mask, cand, cfg):
     points p_w [Q, 3] among their candidates `cand` [3, Q, 8*cap]. Every row
     is fitted on its own, so Q may hold several streams' points."""
     d, near = knn_among_planar(cand, p_w, k=cfg.knn)  # near [3, Q, k]
+    return corner_geometry(stack_mask, d, near, cfg)
+
+
+def corner_geometry(stack_mask, d, near, cfg):
+    """Line features (a, b, |a - b|, valid) from each query's k nearest
+    map points: d [Q, k] ascending, near [3, Q, k] planar."""
     ok = stack_mask & (d[:, cfg.knn - 1] < cfg.neighbor_radius_sq)
     center_p = torch.mean(near, dim=2)  # [3, Q]
     dm = near - center_p[:, :, None]
@@ -113,6 +119,12 @@ def surf_fit(p_w, stack_mask, cand, cfg):
     :538-581) of world points p_w [Q, 3], planar [3, Q, k] throughout; rows
     are independent, as in corner_fit."""
     d, near = knn_among_planar(cand, p_w, k=cfg.knn)  # near [3, Q, k]
+    return surf_geometry(stack_mask, d, near, cfg)
+
+
+def surf_geometry(stack_mask, d, near, cfg):
+    """Plane features (n_hat, 1/|n|, valid) from each query's k nearest map
+    points, as corner_geometry takes them."""
     ok = stack_mask & (d[:, cfg.knn - 1] < cfg.neighbor_radius_sq)
     AtA = _gram(near)
     Atb = -torch.sum(near, dim=2).T  # [Q, 3] = A^T * (-1)
@@ -179,6 +191,22 @@ def mo_families(cp, is_edge, A, Bp, DE, NH, NOOD, w):
     return make_family
 
 
+def fused_family(cp, is_edge, corner, surf):
+    """make_family of ONE fused residual family over a frame's stack points
+    cp [Qc + Qs, 3]: the corner rows' line terms corner = (a, b, |a - b|,
+    valid) and the surf rows' plane terms surf = (n_hat, 1/|n|, valid),
+    plane rows in slot 0, zero-padded."""
+    a, b, de, v_c = corner
+    n_hat, nood, v_s = surf
+    A = torch.cat([a, torch.zeros_like(n_hat)])
+    Bp = torch.cat([b, torch.zeros_like(n_hat)])
+    DE = torch.cat([de, torch.ones_like(nood)])
+    NH = torch.cat([torch.zeros_like(a), n_hat])
+    NOOD = torch.cat([torch.zeros_like(de), nood])
+    w = torch.cat([v_c, v_s]).to(torch.float32)
+    return mo_families(cp, is_edge, A, Bp, DE, NH, NOOD, w)
+
+
 def solve_mapping(grid_map: GridMap, corner_stack_xyz, corner_stack_mask,
                   surf_stack_xyz, surf_stack_mask, q_pred, t_pred, cfg):
     """One mapping solve + map update. Returns (new_map, q_w, t_w, stats)."""
@@ -204,19 +232,11 @@ def solve_mapping(grid_map: GridMap, corner_stack_xyz, corner_stack_mask,
                < B_c)[:, None]
     cp = torch.cat([corner_stack_xyz, surf_stack_xyz])
     for _ in range(cfg.outer_rounds):
-        a, b, de, v_c = _corner_terms(
-            corner_stack_xyz, corner_stack_mask, cand_c, x, cfg)
-        n_hat, nood, v_s = _surf_terms(
-            surf_stack_xyz, surf_stack_mask, cand_s, x, cfg)
-        # ONE fused residual family (plane rows in slot 0, zero-padded)
-        A = torch.cat([a, torch.zeros_like(n_hat)])
-        Bp = torch.cat([b, torch.zeros_like(n_hat)])
-        DE = torch.cat([de, torch.ones_like(nood)])
-        NH = torch.cat([torch.zeros_like(a), n_hat])
-        NOOD = torch.cat([torch.zeros_like(de), nood])
-        w = torch.cat([v_c, v_s]).to(torch.float32)
-        x = lm_solve(mo_families(cp, is_edge, A, Bp, DE, NH, NOOD, w),
-                     _retract, x, iterations=cfg.gn_iterations,
+        corner = _corner_terms(corner_stack_xyz, corner_stack_mask, cand_c,
+                               x, cfg)
+        surf = _surf_terms(surf_stack_xyz, surf_stack_mask, cand_s, x, cfg)
+        x = lm_solve(fused_family(cp, is_edge, corner, surf), _retract, x,
+                     iterations=cfg.gn_iterations,
                      huber_delta=cfg.huber_delta)
     x = torch.where(enough, x, x0)
     q_w, t_w = x[:4], x[4:]
@@ -285,6 +305,9 @@ class LaserMapping:
         self.frame_count = 0
         self.last_stats = {}
 
+    def _solve(self, *args):
+        return solve_mapping(*args)
+
     def step(self, corner_cloud: FeatureCloud, surf_cloud: FeatureCloud,
              q_wodom, t_wodom, skip_frame: bool = False) -> dict:
         """corner_cloud / surf_cloud: the frame's less-sharp / less-flat
@@ -310,7 +333,7 @@ class LaserMapping:
             return torch.tensor(np.asarray(x), dtype=torch.float32,
                                 device=self.device)
 
-        self.map, q_w, t_w, stats = solve_mapping(
+        self.map, q_w, t_w, stats = self._solve(
             self.map, c_xyz, c_m, s_xyz, s_m, dev(q_pred), dev(t_pred), cfg)
         self.q_w = q_w.cpu().numpy().astype(np.float64)
         self.q_w /= np.linalg.norm(self.q_w)

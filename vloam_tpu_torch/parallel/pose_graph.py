@@ -1,5 +1,5 @@
-"""Pose-graph optimization, the loop-consistency backend (port of the
-single-device half of vloam_tpu/parallel/pose_graph.py).
+"""Pose-graph optimization, the loop-consistency backend (port of
+vloam_tpu/parallel/pose_graph.py).
 
 A batched SE(3) pose graph solved by Gauss-Newton with matrix-free,
 block-Jacobi preconditioned conjugate gradient. State: poses [N, 7] (quat
@@ -12,7 +12,13 @@ order: its edges as the first end in edge order, then as the second end, as
 the reference's two scatter-adds do on the CPU. It is a stable sort of the
 edge ends once per solve and a sequential segment sum per node
 (torch.segment_reduce), never an atomic index_add_, so the result is the
-same on every run and device. The edge-sharded mesh path is not ported.
+same on every run and device.
+
+With a mesh (parallel/sharded.py) the edges are sharded over its ranks
+(shard_graph; padding edges have weight 0) and the poses are replicated:
+each rank sums the right-hand side, the preconditioner blocks and each CG
+product over its own edges, one all_reduce adds them over the ranks, and
+every rank runs the same PCG on the sums.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..geometry import so3
+from .sharded import psum, shard_batch
 
 
 class PoseGraph(NamedTuple):
@@ -97,16 +104,32 @@ def _contract_t(J, u):
     return (J * u[:, :, None]).sum(1)
 
 
+def shard_graph(graph: PoseGraph, mesh) -> PoseGraph:
+    """This rank's edge shard of a whole graph: the edges padded to a
+    multiple of the mesh size (node 0 to node 0, identity measurement,
+    weight 0) and split in rank order; the poses stay whole."""
+    pad = (-graph.edge_i.shape[0]) % mesh.size
+    meas = graph.meas
+    if pad:
+        ident = torch.zeros((pad, 7), dtype=meas.dtype, device=meas.device)
+        ident[:, 3] = 1.0
+        meas = torch.cat([meas, ident])
+    return PoseGraph(graph.poses, shard_batch(graph.edge_i, mesh),
+                     shard_batch(graph.edge_j, mesh), shard_batch(meas, mesh),
+                     shard_batch(graph.weight, mesh))
+
+
 def optimize_pose_graph(graph: PoseGraph, mesh=None, gn_iters: int = 8,
                         cg_iters: int = 32, damping: float = 1e-6,
                         gauge_weight: float = 1e6) -> torch.Tensor:
     """Optimized poses [N, 7] on the graph's device. Nothing is read back to
     the host: gn_iters Gauss-Newton steps of cg_iters PCG iterations each
-    are queued as they come. mesh: the edge-sharded solve is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "optimize_pose_graph(mesh=...) is not ported; the edge-sharded "
-            "solve is ROADMAP queue 1's distributed item")
+    are queued as they come. mesh: a parallel.sharded.Mesh over whose
+    ranks the graph's edges are sharded (shard_graph), every rank calling
+    with its own shard; the result is the same on every rank."""
+    def reduce(x):
+        return x if mesh is None else psum(x, mesh)
+
     poses = graph.poses
     n = poses.shape[0]
     ei, ej = graph.edge_i.long(), graph.edge_j.long()
@@ -122,15 +145,18 @@ def optimize_pose_graph(graph: PoseGraph, mesh=None, gn_iters: int = 8,
 
         def A(v):
             u = _contract(J, torch.cat([v[ei], v[ej]], dim=-1))
-            y = sums(_contract_t(Ji, u), _contract_t(Jj, u))
+            y = reduce(sums(_contract_t(Ji, u), _contract_t(Jj, u)))
             return y + damping * v + gauge * v
 
-        b = sums(-_contract_t(Ji, r), -_contract_t(Jj, r))
-        # block-Jacobi preconditioner: without it CG on a chain graph needs
-        # O(N) iterations
-        D = sums((Ji[:, :, :, None] * Ji[:, :, None, :]).sum(1),
-                 (Jj[:, :, :, None] * Jj[:, :, None, :]).sum(1))
-        D = D + damping * eye6 + gauge[:, :, None] * eye6
+        # the right-hand side and the block-Jacobi preconditioner (without
+        # it CG on a chain graph needs O(N) iterations), in one reduction
+        bD = reduce(sums(
+            torch.cat([-_contract_t(Ji, r)[:, :, None],
+                       (Ji[:, :, :, None] * Ji[:, :, None, :]).sum(1)], 2),
+            torch.cat([-_contract_t(Jj, r)[:, :, None],
+                       (Jj[:, :, :, None] * Jj[:, :, None, :]).sum(1)], 2)))
+        b = bD[:, :, 0]
+        D = bD[:, :, 1:] + damping * eye6 + gauge[:, :, None] * eye6
         Minv = torch.linalg.inv_ex(D).inverse  # no singularity check: no sync
 
         def apply_M(res):

@@ -21,6 +21,11 @@ the three KITTI-format trajectories out.
   VloamEngine (combined): chunks of frames queued on the device, one
   download at the end; optional map publication to .npz files, and
   checkpoint / resume of the whole device state (runtime/checkpoint.py).
+
+Either runner takes a mesh (parallel/sharded.py): every rank of it runs the
+same sequence, and the mapping stage runs as distributed BA over the ranks
+(MeshLaserMapping in the host engine, the mesh mapping chunk in the fused
+engines). Rank 0 alone writes trajectories and maps.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from .lidar.loam_step import engine_device
 from .lidar.mapping import LaserMapping
 from .lidar.odometry import LaserOdometry
 from .lidar.scan_registration import register_scan
+from .parallel.sharded import mesh_device
 from .runtime.profiling import TicToc, Watchdog
 from .vision.vo import VisualOdometry
 
@@ -52,25 +58,29 @@ class VloamPipeline:
     imu_T_velo, imu_T_cam0). viz_dir: dump match (or flow) and depth debug
     PNGs every viz_every frames (frames 1, 1 + viz_every, ...; the
     reference's visualize_* image topics, visual_odometry.cpp:489-522).
-    mesh: not ported (raises NotImplementedError)."""
+    mesh: a parallel.sharded.Mesh: the mapping stage is then
+    MeshLaserMapping, its solve distributed over the ranks, and every stage
+    runs on the rank's mesh.device."""
 
     def __init__(self, cfg, calib, viz_dir: str | None = None,
                  viz_every: int = 10, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "VloamPipeline(mesh=...) is not ported (ROADMAP queue 1, "
-                "distributed)")
         self.cfg = cfg
         self.calib = calib
         self.viz_dir = viz_dir
         self.viz_every = viz_every
-        self.device = engine_device(device)
+        self.device = (engine_device(device) if mesh is None
+                       else mesh_device(mesh, device))
         self.chain = FrameChain(np.asarray(calib.imu_T_velo, np.float64),
                                 np.asarray(calib.imu_T_cam0, np.float64))
         self.vo = VisualOdometry(cfg.vo, calib.K, calib.P_velo_to_img,
                                  device=self.device)
         self.lo = LaserOdometry(cfg.lo, device=self.device)
-        self.mo = LaserMapping(cfg.mapping, device=self.device)
+        if mesh is None:
+            self.mo = LaserMapping(cfg.mapping, device=self.device)
+        else:
+            from .parallel.mesh_pipeline import MeshLaserMapping
+
+            self.mo = MeshLaserMapping(cfg.mapping, mesh, device=self.device)
         self.count = -1
         self.watchdog = Watchdog(budget_ms=100.0,
                                  verbose=cfg.verbose_level > 0)
@@ -175,10 +185,13 @@ def run_sequence(cfg, calib, frames, out_dir: str | None = None,
     'points' and optional 'image'. Writes {VO,LO,MO}{suffix}.txt under
     out_dir as the frames go (suffix: int(detach_VO_LO)); progress(k, info)
     after each frame. Returns the trajectories [N, 3, 4] and the per-frame
-    stage timings (t_*_ms). mesh: not ported (raises)."""
+    stage timings (t_*_ms). mesh: see VloamPipeline; rank 0 alone writes
+    the files."""
     pipe = VloamPipeline(cfg, calib, viz_dir=viz_dir, mesh=mesh,
                          device=device)
     save = cfg.save_traj if save_traj is None else save_traj
+    if mesh is not None and mesh.rank != 0:
+        out_dir = None
     files = {}
     if out_dir is not None and save:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
@@ -221,24 +234,33 @@ def run_sequence_fused(cfg, calib, frames, out_dir: str | None = None,
     laser_mapping.cpp:778-793). init_state / save_state_path: restore /
     persist the full device state (map, feature slabs, pose chain) via
     runtime.checkpoint; a resumed run continues the SAME map (the reference
-    loses its map on any restart). mesh: not ported (raises)."""
-    if mesh is not None:
+    loses its map on any restart). mesh: a parallel.sharded.Mesh; the
+    engines' mapping stage runs over its ranks (result["mesh_window"]: the
+    peak active map rows against the window's), rank 0 alone writes files,
+    and a checkpoint path with it raises, as the reference's (the map is
+    sharded)."""
+    if mesh is not None and (init_state or save_state_path):
         raise NotImplementedError(
-            "run_sequence_fused(mesh=...) is not ported (ROADMAP queue 1, "
-            "distributed)")
+            "checkpointing the mesh-sharded map is not wired up (as in the "
+            "reference); run the mesh without --init-state / --save-state")
+    writer = mesh is None or mesh.rank == 0
     t0 = time.perf_counter()
     n_frames = 0
     map_cb = None
     if save_map is not None:
-        Path(save_map).mkdir(parents=True, exist_ok=True)
+        if writer:
+            Path(save_map).mkdir(parents=True, exist_ok=True)
 
         def map_cb(frame_idx, corner, surf):
-            np.savez(Path(save_map) / f"map_{frame_idx:06d}.npz",
-                     corner=corner, surf=surf)
+            # every rank gathers the sharded map (a collective), rank 0 saves
+            if writer:
+                np.savez(Path(save_map) / f"map_{frame_idx:06d}.npz",
+                         corner=corner, surf=surf)
     if lidar_only:
         from .lidar.loam_step import LoamEngine, unpack_outputs
 
-        eng = LoamEngine(cfg, chunk=chunk, map_callback=map_cb, device=device)
+        eng = LoamEngine(cfg, chunk=chunk, map_callback=map_cb, device=device,
+                         mesh=mesh)
         if init_state is not None:
             from .runtime.checkpoint import load_state
 
@@ -275,7 +297,7 @@ def run_sequence_fused(cfg, calib, frames, out_dir: str | None = None,
         from .vloam_step import VloamEngine, unpack_vloam_outputs
 
         eng = VloamEngine(cfg, calib, chunk=chunk, map_callback=map_cb,
-                          device=device)
+                          device=device, mesh=mesh)
         if init_state is not None:
             from .runtime.checkpoint import load_state
 
@@ -302,8 +324,14 @@ def run_sequence_fused(cfg, calib, frames, out_dir: str | None = None,
         result["raw"] = raw
     dt = time.perf_counter() - t0
     result["fps"] = n_frames / max(dt, 1e-9)
+    if mesh is not None:
+        active, cap = eng.window_active_rows
+        result["mesh_window"] = {"active_rows_max": active, "cap": cap}
+        if verbose:
+            print(f"mesh mapping: peak active map rows {active} / window "
+                  f"cap {cap}", flush=True)
 
-    if out_dir is not None and cfg.save_traj:
+    if out_dir is not None and cfg.save_traj and writer:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
         suffix = str(int(cfg.detach_VO_LO))
         for which in ("VO", "LO", "MO"):

@@ -95,23 +95,31 @@ def lm_solve(
     iterations: int,
     huber_delta: float,
     init_lambda: float = 1e-4,
+    reduce: Callable | None = None,
 ) -> torch.Tensor:
     """Run `iterations` LM steps. `make_family(x)` linearizes the residuals
     at x in the local delta around x; `retract(x, delta)` applies the local
-    step.
+    step. reduce(H, g, cost), where given, maps each evaluation's normal
+    equations to their sums over a mesh (parallel/sharded.py: the reference's
+    psum'd LM, sharded_mapping.py:168-185), so every rank takes the same
+    branch.
 
     (H, g, cost) are computed at the TRIAL point and carried: an accepted
     step's normal equations are reused as the next linearization, a rejected
     step keeps the carried ones — the same accept/reject trajectory and
     lambda schedule as the JAX reference (lm.py:157-170)."""
-    H, g, cost = normal_equations(make_family(x0), huber_delta)
+    def evaluate(x):
+        ne = normal_equations(make_family(x), huber_delta)
+        return ne if reduce is None else reduce(*ne)
+
+    H, g, cost = evaluate(x0)
     x = x0
     lam = torch.full(x0.shape[:-1], init_lambda, dtype=torch.float32,
                      device=x0.device)
     for _ in range(iterations):
         delta = solve_damped(H, g, lam)
         x_try = retract(x, -delta)
-        H_t, g_t, cost_t = normal_equations(make_family(x_try), huber_delta)
+        H_t, g_t, cost_t = evaluate(x_try)
         accept = cost_t < cost
         x = torch.where(accept[..., None], x_try, x)
         H = torch.where(accept[..., None, None], H_t, H)

@@ -138,3 +138,11 @@ def zncc_bound(K: int, p: int, H: int, W: int) -> tuple[float, str]:
     norm, the multiply that scales it)."""
     n_desc = K * p * p
     return bound_ms(4 * (H * W + 2 * K + n_desc), 5 * n_desc)
+
+
+def knn_bound(Q: int, C: int, k: int) -> tuple[float, str]:
+    """lidar/knn.masked_knn of Q queries against C candidates: 3 fused
+    multiply-adds (6 operations) a pair for q.c; the [Q, 3] queries, the
+    [C, 3] candidates and their [C] mask read once, the [Q, k] float32
+    distances and int64 indices written once."""
+    return bound_ms(Q * 12 + C * 13 + Q * k * 12, 6 * Q * C)

@@ -21,8 +21,9 @@ the device until ``VloamEngine.finish``.
 Every VO option runs as the reference's: the detectors, the ZNCC and ORB
 descriptors, the BF and FLANN matchers with KNN or NN selection, CLAHE,
 bucket NMS, LK flow matching and the low-texture fallback (LK flow
-re-matches a frame pair whose descriptor matches collapsed). The engine's
-mesh argument raises NotImplementedError.
+re-matches a frame pair whose descriptor matches collapsed). With a mesh,
+loop 2 is the mapping chunk sharded over its ranks
+(parallel/mesh_fused.py).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 from .data.synthetic import hdl64_elevations, pad_scan
 from .geometry import so3
 from .lidar.loam_step import (_select_tree, _upload, _upload_polar,
-                              engine_device, pack12, unpack12, unpack_outputs)
+                              engine_device, pack12, unpack12,
+                              unpack_outputs)
 from .lidar.mapping import GridMap, export_map_points, solve_mapping
 from .lidar.odometry import solve_lo
 from .lidar.ring_assoc import RingSlab
@@ -441,16 +443,25 @@ class VloamEngine:
     pack12: stage push_polar images as 12-bit packed uint8
     (lidar.loam_step.pack12).
     map_callback(frame_idx, corner, surf): as LoamEngine's, after the chunk
-    that reaches every cfg.mapping.map_pub_number frames. mesh: not ported
-    (raises NotImplementedError)."""
+    that reaches every cfg.mapping.map_pub_number frames.
+    mesh, mesh_window_rows: as LoamEngine's: loop 1 runs whole on every
+    rank, loop 2 is the mesh mapping chunk (parallel/mesh_fused.py), and
+    `window_active_rows` reports its window."""
 
     def __init__(self, cfg, calib, chunk: int = 8, device="cuda",
-                 pack12: bool = False, map_callback=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("VloamEngine(mesh=...) is not ported")
+                 pack12: bool = False, map_callback=None, mesh=None,
+                 mesh_window_rows: int = 4096):
         self.cfg = cfg
         self.chunk = chunk
-        self.device = engine_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = engine_device(device)
+        else:
+            from .parallel.mesh_fused import MeshMappingChunk
+            from .parallel.sharded import mesh_device
+
+            self.device = mesh_device(mesh, device)
+            self._mesh_chunk = MeshMappingChunk(mesh, cfg, mesh_window_rows)
         self.pack12 = pack12
         self.ext = CamExtrinsics.from_calib(calib, self.device)
         # Polar ingest decodes only the forward +-(polar_fov_fraction * pi)
@@ -472,6 +483,8 @@ class VloamEngine:
                     "vo.polar_fov_fraction (1.0 = full sweep)")
         self.vstate = VisionLoState.create(cfg, self.device)
         self.lstate = MapState.create(cfg, self.device)
+        if mesh is not None:
+            self.lstate = self._mesh_chunk.shard(self.lstate)
         self._outs: list[torch.Tensor] = []
         self._scans: list[np.ndarray] = []
         self._ns: list[int] = []
@@ -487,9 +500,19 @@ class VloamEngine:
     def state(self):
         return (self.vstate, self.lstate)
 
+    @property
+    def window_active_rows(self) -> tuple[int, int]:
+        return ((0, 0) if self.mesh is None
+                else self._mesh_chunk.window_active_rows)
+
     def _run_mapping(self, vl_out, stacks):
-        self.lstate, mo_out = mapping_run_chunk(
-            self.lstate, *stacks, vl_out[:, 7:11], vl_out[:, 11:14], self.cfg)
+        if self.mesh is None:
+            self.lstate, mo_out = mapping_run_chunk(
+                self.lstate, *stacks, vl_out[:, 7:11], vl_out[:, 11:14],
+                self.cfg)
+        else:
+            self.lstate, mo_out = self._mesh_chunk(
+                self.lstate, *stacks, vl_out[:, 7:11], vl_out[:, 11:14])
         return torch.cat([
             vl_out[:, :14],  # q_f2f, t_f2f, q_w_lo, t_w_lo
             mo_out[:, :7],  # q_mo, t_mo
@@ -558,7 +581,9 @@ class VloamEngine:
 
     def _maybe_publish_map(self):
         if self.map_callback is not None and self._frame >= self._next_pub:
-            corner, surf = export_map_points(self.lstate.cube)
+            cube = (self.lstate.cube if self.mesh is None
+                    else self._mesh_chunk.whole_map(self.lstate.cube))
+            corner, surf = export_map_points(cube)
             self.map_callback(self._frame, corner, surf)
             while self._next_pub <= self._frame:
                 self._next_pub += self.cfg.mapping.map_pub_number
