@@ -10,7 +10,8 @@ Phases (one line each; any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit; CUDA required, TF32 off
   2. build: compile the hand-written kernels from kernels/csrc with nvcc;
      ptxas' registers, spills and shared memory of the six redesigned
-     kernels (K1, K2, K3, ring_min1, ring_argmin2, grid_probe)
+     kernels (K1, K2, K3, ring_min1, ring_argmin2, grid_probe) and of
+     ring_min1_packed in both its forms
   frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
      1242 x 375 camera images, and three more 20-frame polar drives for the
      batch engine's other streams, rendered in worker processes
@@ -19,15 +20,24 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      on the crafted cases of vloam_tpu_torch/tools/kernel_cases.py (windows
      that cross a sector's end, chains of such, equal curvatures, short
      rings, NaN, widths up to 7000)
-  4. K2 ring_min2 and S1 ring_min1 / ring_argmin2 vs their plain versions at
-     the corner and surf LO shapes on real frame features, on crafted ties,
+  4. K2 ring_min2, S1 ring_min1 / ring_argmin2 and ring_min1_packed (the
+     engines' LO association, impl "mxu"; in its product form and in the
+     difference form of impl "packed") vs their plain versions, bit for
+     bit, at the corner and surf LO shapes on real frame features, on
+     crafted ties,
      on K2's crafted cases (duplicates across chunk and tile boundaries,
      SENTINEL slots between live ones, counts that fit no tile), on the
      min-only slab shapes (counts ring_min1's block shape divides unevenly,
      equal minima across its groups), on ring_argmin2's (the runner-up at
      the winner's distance, the winner in the last slot, slot counts no tile
-     divides, rings all SENTINEL) and at the two shapes of the ring-variants
-     measurement; times beside those of the kernels before their redesign
+     divides, rings all SENTINEL), on the packed minimum's (quantized ties
+     broken by the lower slot, clipped rings, dense clouds) and at the two
+     shapes of the ring-variants measurement; times beside those of the
+     kernels before their redesign
+  4b. ring_slab_assoc under each of the reference's impls (mxu, packed,
+     xla, pallas), corner and surf, at the LO shapes of real features:
+     every output identical card vs CPU; K2 (pallas) and ring_min1 (xla),
+     which no engine launches, are counted on this path
   5. end to end: LoamEngine(kitti_hdl64(), chunk=16, device="cuda") over the
      drive; frames/s, kernel launch counts, MO error against ground truth,
      no host sync in the timed frames
@@ -62,7 +72,8 @@ Phases (one line each; any failure ends the run with a nonzero exit):
   12. the ring-variants measurement entry point (ring_argmin2's path): its
      check against the plain version and its times, beside ring_argmin2's
      before its redesign
-  13. launches per frame: torch.profiler over steady frames of each engine,
+  13. launches per frame: torch.profiler over steady frames of each engine
+     (the LO association: ring_min1_packed, 4 launches a frame),
      with the device time per launch of each hand-written kernel there (K3's
      in VloamEngine: the L2 the engine leaves it); printed, not gated: the
      profiler can lose records
@@ -151,14 +162,18 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      5. close_loops(mesh=<one NCCL rank>) on 14b's trajectory: 14d's loops,
         poses within 1e-3 m; `python -m vloam_tpu_torch run --synthetic 12
         --mesh 1` with no --device
+  B. vloam_tpu_torch.tools.bench (the port's bench.py) at 16 frames a
+     window: its line parses, with bench.py's keys and the port's, finite
+     numbers and the card's name
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
 the kernels' line takes its times and its bound at the shapes of the path
 that its launches are counted on: the batch drive (phase 10) for
-select_rings, ring_min2, ring_min1 (per stream: the single engine's shapes),
+select_rings, ring_min1_packed (per stream: the single engine's shapes),
 grid_probe (the lockstep frame's probe of both grids) and row_gather (the
-flat surf insert), the combined engine (phase 8) for zncc_describe, the
+flat surf insert), the association forms (phase 4b) for ring_min2 and
+ring_min1, the combined engine (phase 8) for zncc_describe, the
 ring-variants entry point (phase 12) for ring_argmin2.
 
 Kernel times are device times (vloam_tpu_torch.tools.timing.device_ms: CUDA
@@ -292,11 +307,12 @@ def build_phase() -> None:
     build.load()
     redesigned = {"select_rings_kernel", "ring_min2_kernel",
                   "zncc_describe_kernel", "ring_min1_kernel",
-                  "ring_argmin2_kernel", "grid_probe_kernel"}
+                  "ring_argmin2_kernel", "grid_probe_kernel",
+                  "ring_min1_packed_kernel"}
     usage = {k: v for k, v in build.resource_usage().items()
              if k.split("<")[0] in redesigned}
     if {k.split("<")[0] for k in usage} != redesigned:
-        fail(f"no ptxas report for a redesigned kernel: {sorted(usage)}")
+        fail(f"no ptxas report for a kernel: {sorted(usage)}")
     print(f"[2 build] {lib.name} in {time.perf_counter() - t0:.2f} s; ptxas: "
           + "; ".join(
               f"{name} {u['registers']} registers, {u['spill_stores']} + "
@@ -304,7 +320,7 @@ def build_phase() -> None:
               f"{u['smem']} B static shared"
               for name, u in sorted(usage.items())), flush=True)
     if any(u["spill_stores"] or u["spill_loads"] for u in usage.values()):
-        fail("a redesigned kernel spills registers")
+        fail("a kernel spills registers")
 
 
 class Calib:
@@ -430,35 +446,45 @@ def k1_phase(cfg, ff) -> dict:
 def _ring_check(q, slab_t, what, errs) -> None:
     """K2 and both S1 kernels against the plain versions on the card: every
     slot and every distance identical (all round (dx^2 + dy^2) + dz^2 alike),
-    so ring_argmin2 equals K2 and ring_min1 its first half. Raises each
-    kernel's entry of errs to its largest |difference| over all outputs."""
+    so ring_argmin2 equals K2 and ring_min1 its first half; and the packed
+    minimum in both forms (impl "mxu", "packed") against its plain versions,
+    every output identical (both round the reference's fused multiply-adds).
+    Raises each kernel's entry of errs to its largest |difference| over all
+    outputs."""
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar import ring_assoc as ra
 
     want = ra.ring_min2_plain(q, slab_t)
     want1 = ra.ring_min1_plain(q, slab_t)
-    got = {"ring_min2": (ra.ring_min2(q, slab_t), want),
-           "ring_argmin2": (kernels.ring_argmin2(q, slab_t), want),
-           "ring_min1": (ra.ring_min1(q, slab_t), want1)}
+    got = {"ring_min2": [(ra.ring_min2(q, slab_t), want)],
+           "ring_argmin2": [(kernels.ring_argmin2(q, slab_t), want)],
+           "ring_min1": [(ra.ring_min1(q, slab_t), want1)],
+           "ring_min1_packed": [
+               (ra.ring_min1_packed(q, slab_t, product),
+                (ra.ring_min1_mxu_plain if product
+                 else ra.ring_min1_packed_plain)(q, slab_t))
+               for product in (True, False)]}
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(want1, want[:2])):
         fail(f"{what}: ring_min1_plain is not ring_min2_plain's first half")
-    for name, (outs, ref) in got.items():
-        for i, (g, w) in enumerate(zip(outs, ref)):
-            errs[name] = max(errs[name], float((g - w).abs().max()))
-            if not torch.equal(g, w):
-                fail(f"{name} {what}: output {i} differs at "
-                     f"{int((g != w).sum())} entries, max {errs[name]}")
+    for name, pairs in got.items():
+        for outs, ref in pairs:
+            for i, (g, w) in enumerate(zip(outs, ref)):
+                errs[name] = max(errs[name], float((g - w).abs().max()))
+                if not torch.equal(g, w):
+                    fail(f"{name} {what}: output {i} differs at "
+                         f"{int((g != w).sum())} entries, max {errs[name]}")
 
 
-def ring_phase(ff) -> tuple[dict, dict, float]:
+def ring_phase(ff) -> tuple[list, dict]:
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar import ring_assoc as ra
     from vloam_tpu_torch.tools import kernel_cases, timing
     from vloam_tpu_torch.tools import profile_ring_variants as prv
 
     shapes = {}
-    errs = {"ring_min2": 0.0, "ring_min1": 0.0, "ring_argmin2": 0.0}
+    errs = {"ring_min2": 0.0, "ring_min1": 0.0, "ring_argmin2": 0.0,
+            "ring_min1_packed": 0.0}
     for k in (1, 2):
         prev, cur = ff[k - 1][3], ff[k][3]
         for what, q, slab in (("corner", cur.sharp.xyz, prev.less_sharp_slab),
@@ -480,11 +506,14 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
         if int(got[1][0, 0]) != 7 or int(got[3][0, 0]) != 50 or \
                 int(got[1][1, 5]) != 0 or int(got[3][1, 5]) != 1:
             fail(f"{fn.__name__} tie rules")
-    got = ra.ring_min1(q.cuda(), slab_t)
-    if int(got[1][0, 0]) != 7 or int(got[1][1, 5]) != 0:
-        fail("ring_min1 tie rules")
+    for fn in (ra.ring_min1, lambda *a: ra.ring_min1_packed(*a, True),
+               lambda *a: ra.ring_min1_packed(*a, False)):
+        got = fn(q.cuda(), slab_t)
+        if int(got[1][0, 0]) != 7 or int(got[1][1, 5]) != 0:
+            fail("ring_min1 / ring_min1_packed tie rules")
     cases = (kernel_cases.ring_min2_cases() + kernel_cases.ring_min1_cases()
-             + kernel_cases.ring_argmin2_cases())
+             + kernel_cases.ring_argmin2_cases()
+             + kernel_cases.ring_packed_cases())
     for case in cases:
         _ring_check(torch.from_numpy(case.queries).cuda(),
                     torch.from_numpy(case.slab_t).cuda(),
@@ -494,7 +523,12 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
 
     fns = {"ring_min2": (ra.ring_min2, ra.ring_min2_plain, 4),
            "ring_min1": (ra.ring_min1, ra.ring_min1_plain, 2),
-           "ring_argmin2": (kernels.ring_argmin2, ra.ring_min2_plain, 4)}
+           "ring_argmin2": (kernels.ring_argmin2, ra.ring_min2_plain, 4),
+           "ring_min1_packed": (lambda *a: ra.ring_min1_packed(*a, True),
+                                ra.ring_min1_mxu_plain, 2),
+           "ring_min1_packed difference": (
+               lambda *a: ra.ring_min1_packed(*a, False),
+               ra.ring_min1_packed_plain, 2)}
     res, line = {}, []
     for what, (q, slab_t) in shapes.items():
         Q, S, C = q.shape[0], slab_t.shape[0], slab_t.shape[2]
@@ -510,20 +544,21 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
             f"{res[name, what][2][0] * 1e3:.2f})" for name in fns))
     clk = clocks()
     share = prv.update_share(*shapes["surf"])
-    print("[4 K2 ring_min2, S1 ring_min1 / ring_argmin2] slots and distances "
-          f"identical to the plain versions (real features, ties, "
-          f"{len(cases)} crafted cases: "
-          + ", ".join(c.name for c in cases) + "; measurement shapes); "
-          "device time " + "; ".join(line) + "; before the redesign "
-          "ring_min2 " + ", ".join(f"{w} {t} us"
-                                   for w, t in K2_BEFORE_US.items())
+    print("[4 K2 ring_min2, S1 ring_min1 / ring_argmin2, ring_min1_packed] "
+          "slots and distances identical to the plain versions (real "
+          f"features, ties, {len(cases)} crafted cases: "
+          + ", ".join(c.name for c in cases) + "; measurement shapes; the "
+          "packed minimum in the product form of impl mxu and the difference "
+          "form of impl packed); device time " + "; ".join(line)
+          + "; before the redesign ring_min2 " + ", ".join(
+              f"{w} {t} us" for w, t in K2_BEFORE_US.items())
           + ", ring_min1 " + ", ".join(f"{w} {t} us" for w, t in
                                        RING_MIN1_BEFORE_US.items())
           + "; chunks of 8 surf slots whose minimum is below the running "
           f"second minimum: {share[0]:.1%} per query, {share[1]:.1%} per "
           f"warp of 128 queries {clk}", flush=True)
-    # each engine kernel's row at the shape its path gives it, per stream
-    # in the batch drive as in the single engine: K2 surf, ring_min1 corner.
+    # each kernel's row at the shape its path gives it: the packed minimum
+    # (the engines' mxu form) and K2 at surf, ring_min1 at corner.
     # ring_argmin2's times come from its own path, the ring-variants entry
     # point (phase 12), which gets its |difference| from here
     return [
@@ -532,7 +567,70 @@ def ring_phase(ff) -> tuple[dict, dict, float]:
                    *res["ring_min2", "surf"]),
         kernel_row("ring_min1", "ring_min1.cu", S1_REPLACES,
                    errs["ring_min1"], *res["ring_min1", "corner"]),
-        errs["ring_argmin2"]]
+        kernel_row("ring_min1_packed", "ring_min1.cu",
+                   "vloam_tpu/lidar/ring_assoc.py:217",
+                   errs["ring_min1_packed"],
+                   *res["ring_min1_packed", "surf"]),
+        errs["ring_argmin2"]], shapes
+
+
+def assoc_phase(shapes) -> dict:
+    """ring_slab_assoc under each of the reference's four impls at the LO
+    shapes of real features (frame 1 against frame 2): every output on the
+    card identical to the CPU's. This is the path of K2 (impl "pallas") and
+    ring_min1 (impl "xla"), which no engine takes: their launches are
+    counted here."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.lidar import ring_assoc as ra
+
+    kernels.reset_launches()
+    for what, (q, slab_t) in shapes.items():
+        slab = ra.RingSlab(slab_t.transpose(1, 2).contiguous())
+        slab_cpu = ra.RingSlab(slab.xyz.cpu())
+        for impl in ("mxu", "packed", "xla", "pallas"):
+            got = ra.ring_slab_assoc(q, slab, 2.5, what, impl)
+            want = ra.ring_slab_assoc(q.cpu(), slab_cpu, 2.5, what, impl)
+            for k in want:
+                if not torch.equal(got[k].cpu(), want[k]):
+                    fail(f"ring_slab_assoc impl {impl} {what}: {k} differs "
+                         "card vs CPU")
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want.update(ring_min2=2, ring_min1=2, ring_min1_packed=4)
+    print("[4b association forms] ring_slab_assoc impl mxu, packed, xla, "
+          "pallas, corner and surf at the LO shapes: every output identical "
+          f"card vs CPU; launches {launches}", flush=True)
+    if launches != want:
+        fail(f"the association forms launched {launches}, want {want}")
+    return launches
+
+
+def bench_phase(card: str, frames, images) -> None:
+    """vloam_tpu_torch.tools.bench at a few frames a window on the drive's
+    frames (bench.py's drive: the same scene, trajectory and seeds): its
+    line parses and holds bench.py's keys and the port's, with finite
+    numbers."""
+    from vloam_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    rec = json.loads(json.dumps(bench.run(
+        "cuda", window=16, windows=3, combined=(8, 8), n_poses=256,
+        frames=frames[:32], images=images[:16])))
+    keys = {"metric", "value", "unit", "vs_baseline", "value_median",
+            "window_rates", "window_frames", "fence_ms",
+            "device_ms_per_frame", "upload_mbps", "upload_ms_per_frame",
+            "device", "host_cpu", "combined_fps", "combined_vs_baseline",
+            "combined_fps_median", "pose_graph_gn_iters_per_sec"}
+    print(f"[B bench] tools/bench.run at 16 frames a window "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}",
+          flush=True)
+    if set(rec) != keys or rec["device"] != card:
+        fail(f"the bench line's keys {sorted(rec)} or device "
+             f"{rec.get('device')}")
+    if not all(np.isfinite(rec[k]) and rec[k] > 0 for k in (
+            "value", "combined_fps", "pose_graph_gn_iters_per_sec",
+            "device_ms_per_frame", "upload_mbps")):
+        fail(f"the bench line's numbers: {rec}")
 
 
 def _sync_free(push, ks):
@@ -552,11 +650,13 @@ def _sync_free(push, ks):
 
 def lidar_launches(n: int, **more) -> dict:
     """Launches of n single-stream frames: K1 once; LO associates twice per
-    frame (K2 for surf, ring_min1 for corner each time); the mapping stage
-    probes both grids in one launch and gathers rows for its 2 inserts."""
-    return {"select_rings": n, "ring_min2": 2 * n, "ring_min1": 2 * n,
-            "row_gather": 2 * n, "grid_probe": n, "zncc_describe": 0,
-            "ring_argmin2": 0, **more}
+    frame, corner and surf each time, at the reference's impl="mxu" (the
+    packed minimum, ring_min1_packed; K2 and ring_min1 not at all); the
+    mapping stage probes both grids in one launch and gathers rows for its
+    2 inserts."""
+    return {"select_rings": n, "ring_min2": 0, "ring_min1": 0,
+            "ring_min1_packed": 4 * n, "row_gather": 2 * n, "grid_probe": n,
+            "zncc_describe": 0, "ring_argmin2": 0, **more}
 
 
 def e2e_phase(cfg, frames, poses):
@@ -1160,7 +1260,7 @@ def vloam_cpu_phase(cfg, frames, images, calib, res_gpu, grid_line) -> None:
         fail("card and CPU trajectories of the combined engine disagree")
 
 
-_KERNELS = ("select_rings_kernel", "ring_min2_kernel", "ring_min1_kernel",
+_KERNELS = ("select_rings_kernel", "ring_min1_packed_kernel",
             "row_gather_kernel", "grid_probe_kernel", "zncc_describe_kernel")
 
 
@@ -1525,8 +1625,7 @@ def host_loop_phase(cfg, frames, res) -> dict:
              f"differ: CPU {cpu['loops']}")
           + f"); max move from MO {moved:.4f} m", flush=True)
     want = {k: 0 for k in kernels.LAUNCHES}
-    want.update(select_rings=2 * n_cand, ring_min2=2 * n_cand,
-                ring_min1=2 * n_cand)
+    want.update(select_rings=2 * n_cand, ring_min1_packed=4 * n_cand)
     if launches != want:
         fail(f"close_loops kernel launch counts {launches}, want {want}")
     if not same:
@@ -1606,8 +1705,8 @@ def host_engine_phase(cfg, host_frames, poses, calib, res_fused) -> dict:
         fail(f"host engine MO error {err['MO']} m >= 0.15 m")
     if not max(vs_fused.values()) < 0.05:
         fail(f"host engine against the fused engine {vs_fused}")
-    path = ("select_rings", "ring_min2", "ring_min1", "grid_probe",
-            "row_gather", "zncc_describe")
+    path = ("select_rings", "ring_min1_packed", "grid_probe", "row_gather",
+            "zncc_describe")
     if not all(launches[k] > 0 for k in path):
         fail(f"the host engine did not launch every kernel of its path: "
              f"{launches}")
@@ -2030,7 +2129,7 @@ def host_cli_viz_phase() -> None:
         want = {"depth", "flow" if name == "flow" else "matches"}
         if {p.split("_")[0] for p in pngs} != want:
             fail(f"--viz ({name}) wrote {pngs}, want {sorted(want)} PNGs")
-        path = ["select_rings", "ring_min2", "ring_min1", "grid_probe",
+        path = ["select_rings", "ring_min1_packed", "grid_probe",
                 "row_gather"] + (["zncc_describe"] if name != "flow" else [])
         if not has_summary or not all(launch.get(k, 0) > 0 for k in path):
             fail(f"--engine host ({name}) printed no timing summary or "
@@ -2261,11 +2360,11 @@ def mesh_ranks_phase(frames, outs_m2) -> None:
         for backend, n in runs:
             out = os.path.join(tmp, f"{backend}.npz")
             t0 = time.perf_counter()
-            rc = launch([script, "mesh-rank", backend, inp, out], n,
-                        timeout=600)
+            run = launch([script, "mesh-rank", backend, inp, out], n,
+                         timeout=600)
             wall = time.perf_counter() - t0
-            if rc != 0:
-                fail(f"{n} {backend} ranks exited {rc}")
+            if run.code != 0:
+                fail(f"{n} {backend} ranks exited {run.code}\n{run.report()}")
             got = np.load(out)
             lo, mo = _mesh_diffs(got["rows"], outs_m2)
             active, cap = got["window"]
@@ -2364,6 +2463,7 @@ def mesh_loop_phase(cfg, frames, res_host, card_14d, mesh) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     from vloam_tpu_torch.config import kitti_hdl64
@@ -2379,8 +2479,9 @@ def main() -> None:
     ff = frame_features(cfg, frames[:3], polar_directions(elev, N_AZ))
     warm_up()
     k1 = k1_phase(cfg, ff)
-    k2, s1_min1, err_argmin2 = ring_phase(ff)
-    del ff
+    (k2, s1_min1, packed, err_argmin2), shapes = ring_phase(ff)
+    launches_assoc = assoc_phase(shapes)
+    del ff, shapes
     res_gpu, eng, outs_gpu = e2e_phase(cfg, frames, poses)
     cpu_phase(cfg, frames, res_gpu)
     k3 = k3_phase(cfg_v, images)
@@ -2421,14 +2522,20 @@ def main() -> None:
     torch.distributed.destroy_process_group()
     print(f"[M] phases M1-M5 in {time.perf_counter() - t_mesh:.1f} s",
           flush=True)
+    bench_phase(card, frames, images)
+    print(f"[done] phases 1-B in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     # launches: each kernel's count over the run of the path that drives it,
     # with the counts set to 0 just before: the batch drive (phase 10), the
-    # combined engine (phase 8) for K3, the ring-variants entry point (phase
-    # 12) for ring_argmin2
-    for row in (k1, k2, s1_min1, probe, s2):
+    # combined engine (phase 8) for K3, the association forms (phase 4b)
+    # for K2 and ring_min1, the ring-variants entry point (phase 12) for
+    # ring_argmin2
+    for row in (k1, packed, probe, s2):
         row["launches"] = launches_b[row["name"]]
+    for row in (k2, s1_min1):
+        row["launches"] = launches_assoc[row["name"]]
     k3["launches"] = launches_v["zncc_describe"]
-    kernels = [k1, k2, k3, probe, s2, s1_min1, s1_argmin2]
+    kernels = [k1, k2, k3, probe, s2, s1_min1, s1_argmin2, packed]
     if any(not row["launches"] > 0 for row in kernels):
         fail(f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

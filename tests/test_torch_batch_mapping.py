@@ -10,8 +10,8 @@ CPU, where every kernel wrapper takes its plain PyTorch version.
   min-only measurement kernel's formulation (per ring min / argmin of the
   summed squared differences) restated in numpy: slots exact, distances to
   1e-6 relative (all add (dx^2 + dy^2) + dz^2 in float32). It equals
-  ring_min2_plain's first two outputs bit for bit, so corner association
-  picks exactly what it picked through the 2-smallest reduction.
+  ring_min2_plain's first two outputs bit for bit, so impl="xla" picks
+  exactly what impl="pallas" picks.
 - batch_grid_insert / gather / evict / batch_solve_mapping against their
   JAX counterparts on the same inputs, mirroring tests/test_batch_mapping.py:
   n_live exact; bucket rows within the insert's fixed-point step
@@ -99,7 +99,7 @@ def test_ring_min1_dispatch_has_no_fallback():
 def test_launch_counters_cover_all_six_kernels():
     assert set(kernels.LAUNCHES) == {
         "select_rings", "ring_min2", "zncc_describe", "row_gather",
-        "grid_probe", "ring_min1", "ring_argmin2"}
+        "grid_probe", "ring_min1", "ring_argmin2", "ring_min1_packed"}
     kernels.reset_launches()
     assert not any(kernels.LAUNCHES.values())
 
@@ -162,17 +162,18 @@ def test_ring_min1_plain_is_first_half_of_ring_min2_plain(rng, case):
         kernels.ring_argmin2(_t(q), _t(slab_t))
 
 
-def test_corner_assoc_picks_unchanged_by_min_only_reduction(rng, monkeypatch):
-    """mode="corner" through ring_min1 gives what it gave through the
-    2-smallest reduction with the second minimum thrown away."""
+def test_corner_assoc_picks_unchanged_by_min_only_reduction(rng):
+    """mode="corner" through ring_min1 (impl="xla") gives what it gives
+    through the 2-smallest reduction with the second minimum thrown away
+    (impl="pallas")."""
     slab = _slab(rng, S=16, C=64)
     live = slab[slab[..., 0] < jra.SENTINEL * 0.5]
     q = (live[rng.integers(0, len(live), 200)]
          + rng.normal(0, 0.5, (200, 3))).astype(np.float32)
-    got = tra.ring_slab_assoc(_t(q), tra.RingSlab(_t(slab)), 2.5, "corner")
-    monkeypatch.setattr(tra, "ring_min1",
-                        lambda qq, ss: tra.ring_min2_plain(qq, ss)[:2])
-    want = tra.ring_slab_assoc(_t(q), tra.RingSlab(_t(slab)), 2.5, "corner")
+    got = tra.ring_slab_assoc(_t(q), tra.RingSlab(_t(slab)), 2.5, "corner",
+                              impl="xla")
+    want = tra.ring_slab_assoc(_t(q), tra.RingSlab(_t(slab)), 2.5, "corner",
+                               impl="pallas")
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k

@@ -55,6 +55,13 @@ needs JAX.)
   minima across chunk, group and tile boundaries) and on ring_argmin2's
   (the runner-up at the winner's distance, the winner in the last slot,
   slot counts no tile divides, rings all SENTINEL).
+- ring_min1_packed, both forms (impl "mxu" and "packed"): every output
+  identical to ring_min1_mxu_plain / ring_min1_packed_plain on candidates
+  near the queries at the engines' shapes and at a slab of many tiles, and
+  on every ring case of kernel_cases.py (quantized ties, duplicates,
+  clipped and all-SENTINEL rings, dense clouds at counts no block divides).
+- ring_slab_assoc under each of the four impls: the card's picks and
+  distances equal the CPU's.
 - The depth grid (vision/depth_map.py) built twice on the card: identical,
   and identical to the CPU's (each cell adds its points in point order).
 - The batch engine on the card against the same engine on the CPU, the
@@ -219,6 +226,69 @@ def test_ring_min1_and_argmin2_kernels_crafted_cases(cuda, case):
         assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, k)
     for g, w in zip(got2, ra.ring_min2_plain(q, slab_t)):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("product", [True, False])
+@pytest.mark.parametrize("Q,C", [(768, 128), (1536, 512), (777, 5000)])
+def test_ring_min1_packed_kernel_matches_plain(cuda, rng, Q, C, product):
+    S = 64
+    slab = np.full((S, C, 3), ra.SENTINEL, np.float32)
+    q = rng.uniform(-20, 20, (Q, 3)).astype(np.float32)
+    for s in range(1, S):  # candidates within a few metres of the queries
+        n = int(rng.integers(1, C + 1))
+        slab[s, :n] = q[rng.integers(0, Q, n)] + rng.normal(0, 2.0, (n, 3))
+    slab[3, 9] = slab[3, 2]  # duplicates: exact ties
+    q[0] = slab[3, 2]
+    q_t = torch.from_numpy(q).to(cuda)
+    slab_t = torch.from_numpy(np.ascontiguousarray(
+        slab.transpose(0, 2, 1))).to(cuda)
+    n0 = kernels.LAUNCHES["ring_min1_packed"]
+    got = ra.ring_min1_packed(q_t, slab_t, product)
+    plain = ra.ring_min1_mxu_plain if product else ra.ring_min1_packed_plain
+    want = plain(q_t, slab_t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ring_min1_packed"] == n0 + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert int(got[1][3, 0]) == 2 and (got[1][0] == 0).all()
+
+
+@pytest.mark.parametrize("product", [True, False])
+@pytest.mark.parametrize(
+    "case", kernel_cases.ring_packed_cases() + kernel_cases.ring_min2_cases()
+    + kernel_cases.ring_min1_cases() + kernel_cases.ring_argmin2_cases(),
+    ids=lambda c: c.name)
+def test_ring_min1_packed_kernel_crafted_cases(cuda, case, product):
+    q = torch.from_numpy(case.queries).to(cuda)
+    slab_t = torch.from_numpy(case.slab_t).to(cuda)
+    got = ra.ring_min1_packed(q, slab_t, product)
+    plain = ra.ring_min1_mxu_plain if product else ra.ring_min1_packed_plain
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain(q, slab_t)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("impl", ["mxu", "packed", "xla", "pallas"])
+def test_ring_slab_assoc_on_card_equals_cpu(cuda, rng, impl):
+    """Every impl's picks and distances on the card equal the CPU's: each
+    kernel equals its plain version, and the rest is the same torch ops."""
+    S, C = 64, 512
+    q = rng.uniform(-20, 20, (1536, 3)).astype(np.float32)
+    slab = np.full((S, C, 3), ra.SENTINEL, np.float32)
+    for s in range(S):
+        n = int(rng.integers(C // 2, C + 1))
+        slab[s, :n] = q[rng.integers(0, len(q), n)] + rng.normal(
+            0, 1.0, (n, 3))
+    for mode in ("corner", "surf"):
+        want = ra.ring_slab_assoc(torch.from_numpy(q),
+                                  ra.RingSlab(torch.from_numpy(slab)), 2.5,
+                                  mode, impl)
+        got = ra.ring_slab_assoc(torch.from_numpy(q).to(cuda),
+                                 ra.RingSlab(torch.from_numpy(slab).to(cuda)),
+                                 2.5, mode, impl)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (mode, k)
 
 
 @pytest.mark.parametrize("W,N", [(96, 16384), (48, 49152), (4, 1000),
@@ -403,8 +473,8 @@ def test_batch_engine_on_card_matches_cpu(cuda):
     n = 2 * len(scans)
     assert kernels.LAUNCHES["row_gather"] == 2 * len(scans)
     assert kernels.LAUNCHES["grid_probe"] == len(scans)
-    assert kernels.LAUNCHES["ring_min1"] == 2 * n
-    assert kernels.LAUNCHES["ring_min2"] == 2 * n
+    assert kernels.LAUNCHES["ring_min1_packed"] == 4 * n
+    assert kernels.LAUNCHES["ring_min1"] == kernels.LAUNCHES["ring_min2"] == 0
     assert kernels.LAUNCHES["select_rings"] == n
     cpu = run("cpu")
     for b in range(2):
@@ -445,11 +515,12 @@ def test_xyz_engine_on_card_matches_cpu(cuda):
                          dict(kernels.LAUNCHES))
     (cpu, n_cpu), (gpu, n_gpu) = res["cpu"], res["cuda"]
     assert not any(n_cpu.values())
-    # per frame: K1 once, 2 association rounds (K2 surf, ring_min1 corner),
-    # both map probes in one grid_probe, 2 inserts through row_gather
-    assert n_gpu == {"select_rings": 4, "ring_min2": 8, "ring_min1": 8,
+    # per frame: K1 once, 2 association rounds (the packed minimum, corner
+    # and surf), both map probes in one grid_probe, 2 inserts through
+    # row_gather
+    assert n_gpu == {"select_rings": 4, "ring_min2": 0, "ring_min1": 0,
                      "row_gather": 8, "grid_probe": 4, "zncc_describe": 0,
-                     "ring_argmin2": 0}
+                     "ring_argmin2": 0, "ring_min1_packed": 16}
     np.testing.assert_allclose(gpu["t_w_lo"], cpu["t_w_lo"], atol=2e-2)
     np.testing.assert_allclose(gpu["t_w_mo"], cpu["t_w_mo"], atol=3e-2)
 
@@ -523,10 +594,10 @@ def test_vloam_engine_on_card_ignores_tf32_settings(cuda):
 
     kernels.reset_launches()
     off, on = _tf32_on_and_off(run)
-    assert kernels.LAUNCHES == {"select_rings": 8, "ring_min2": 16,
-                                "ring_min1": 16, "row_gather": 16,
+    assert kernels.LAUNCHES == {"select_rings": 8, "ring_min2": 0,
+                                "ring_min1": 0, "row_gather": 16,
                                 "grid_probe": 8, "zncc_describe": 8,
-                                "ring_argmin2": 0}
+                                "ring_argmin2": 0, "ring_min1_packed": 32}
     assert np.isfinite(off).all() and (off[1:, 31] > 0).all()
     np.testing.assert_array_equal(on, off)
 
@@ -600,7 +671,7 @@ def test_cli_runs_on_the_card_by_default(cuda):
             if ln.startswith("kernel launches: ")]
     launches = json.loads(line[0][len("kernel launches: "):])
     assert launches["select_rings"] == 4 and launches["grid_probe"] == 4
-    assert launches["ring_min2"] == launches["ring_min1"] == 8
+    assert launches["ring_min1_packed"] == 16
 
 
 def _host_drive(cfg, n=4):
@@ -640,12 +711,13 @@ def test_host_engine_runs_on_the_card_by_default(cuda):
     kernels.reset_launches()
     gpu = run_sequence(cfg, calib, frames)
     n = len(frames)
-    # LO solves from frame 1 on: 2 association rounds (K2 surf, ring_min1
-    # corner); mapping's probe and 2 inserts, and K3, on every frame
-    assert kernels.LAUNCHES == {"select_rings": n, "ring_min2": 2 * (n - 1),
-                                "ring_min1": 2 * (n - 1),
-                                "row_gather": 2 * n, "grid_probe": n,
-                                "zncc_describe": n, "ring_argmin2": 0}
+    # LO solves from frame 1 on: 2 association rounds (the packed minimum,
+    # corner and surf); mapping's probe and 2 inserts, and K3, on every frame
+    assert kernels.LAUNCHES == {"select_rings": n, "ring_min2": 0,
+                                "ring_min1": 0, "row_gather": 2 * n,
+                                "grid_probe": n, "zncc_describe": n,
+                                "ring_argmin2": 0,
+                                "ring_min1_packed": 4 * (n - 1)}
     cpu = run_sequence(cfg, calib, frames, device="cpu")
     assert np.isfinite(gpu["VO"]).all()
     for which, tol in (("LO", 2e-2), ("MO", 3e-2)):

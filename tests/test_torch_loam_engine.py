@@ -3,10 +3,12 @@ CPU at the small test profile (tests/test_pipeline.py::small_cfg).
 
 - solve_lo, solve_mapping and one whole frame step, run on recurrent state
   carried over from a JAX LoamEngine through convert.py and on the same
-  JAX-extracted features. LO poses to 1e-4 (quaternion / m): the port
-  associates with exact distances, the JAX engine's default association
-  quantizes them, so only near-tied candidates and the rounding of the LM
-  sums differ. MO poses to 3e-4 (quaternion) and 5e-3 m: the mapping plane
+  JAX-extracted features. LO poses to 1e-4 (quaternion / m): both engines
+  associate with the reference's default impl="mxu" (the quantized,
+  packed |q|^2 + |c|^2 - 2 q.c minimum and the quantized ring0 pick), which
+  the port computes bit for bit (tests/test_torch_ring_assoc.py), so the
+  same correspondences enter both LMs and only the rounding of the LM sums
+  differs. MO poses to 3e-4 (quaternion) and 5e-3 m: the mapping plane
   fit solves A n = -1 by adjugate, which is ill-conditioned on near-collinear
   5-point neighbourhoods, and those noise-driven planes pass the fit test.
   The reference itself moves its MO translation by 2.1e-3 m on this frame
@@ -297,6 +299,7 @@ def test_port_never_imports_jax():
             "vloam_tpu_torch.tools.profile_row_gather, "
             "vloam_tpu_torch.tools.profile_grid_probe, "
             "vloam_tpu_torch.tools.profile_ring_variants, "
+            "vloam_tpu_torch.tools.bench, vloam_tpu_torch.parallel.launch, "
             "vloam_tpu_torch.cli, vloam_tpu_torch.pipeline, "
             "vloam_tpu_torch.runtime.checkpoint, "
             "vloam_tpu_torch.runtime.profiling, vloam_tpu_torch.data.kitti, "

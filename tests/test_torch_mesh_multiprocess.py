@@ -20,7 +20,13 @@ holds: the same shard_batch blocks, map rows and edge shards.
   5 finite MO poses.
 
 Every case runs under its own wall-clock limit (LIMIT_S), after which all
-its processes are killed; the ranks' collectives give up after 100 s.
+its processes are killed; the ranks' collectives give up after 100 s. A
+failed case reports each rank's exit code (124: the limit) and the end of
+its stderr.
+
+- launch() itself: a rank that fails is reported with its code and
+  stderr, the others killed; the ranks join the launcher's store, so
+  launches started together never race for a port.
 """
 
 import os
@@ -62,10 +68,40 @@ def _env():
 def _ranks(case: str, D: int, inputs: dict, tmp_path) -> dict:
     inp, out = tmp_path / "in.npz", tmp_path / "out.npz"
     np.savez(inp, **inputs)
-    rc = launch([str(WORKER), case, str(inp), str(out)], D, timeout=LIMIT_S,
-                env=_env())
-    assert rc == 0, f"{case} at {D} ranks exited {rc}"
+    run = launch([str(WORKER), case, str(inp), str(out)], D, timeout=LIMIT_S,
+                 env=_env())
+    assert run.code == 0, (f"{case} at {D} ranks exited {run.code} (124: "
+                           f"past {LIMIT_S} s)\n{run.report()}")
     return dict(np.load(out))
+
+
+def test_launch_reports_each_rank(tmp_path):
+    """A rank that fails ends the run with its code; the report names each
+    rank's code and the end of its stderr. Three launches at once, each a
+    2-rank gloo group that all-reduces, all pass: each group's store is its
+    own launcher's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    script = tmp_path / "rank.py"
+    script.write_text(
+        "import os, sys, torch, torch.distributed as dist\n"
+        "dist.init_process_group('gloo', init_method='env://')\n"
+        "x = torch.ones(1)\n"
+        "dist.all_reduce(x)\n"
+        "assert x.item() == dist.get_world_size()\n"
+        "dist.destroy_process_group()\n"
+        "if sys.argv[1] == 'fail' and os.environ['RANK'] == '1':\n"
+        "    sys.stderr.write('rank one gives up\\n')\n"
+        "    sys.exit(3)\n")
+    run = launch([str(script), "fail"], 2, timeout=LIMIT_S, env=_env())
+    assert run.code == 3 and run.codes[1] == 3
+    assert "rank one gives up" in run.tails[1]
+    assert "rank 1 exited 3" in run.report()
+    with ThreadPoolExecutor(3) as pool:
+        runs = list(pool.map(lambda _: launch([str(script), "pass"], 2,
+                                              timeout=LIMIT_S, env=_env()),
+                             range(3)))
+    assert [r.code for r in runs] == [0, 0, 0], [r.report() for r in runs]
 
 
 @pytest.mark.parametrize("D", SIZES)

@@ -20,13 +20,28 @@ ring_assoc) with the JAX reference.
 - ring_min2_plain, which ring_argmin2 equals, on ring_argmin2's crafted
   cases against the argmin, mask, argmin formulation in numpy (bit for bit)
   and ring_min2_xla (slots exact, distances to 1e-6 relative).
-- ring_slab_assoc against the reference's exact impl="xla": d0/p0/d2/p2
-  equal to 1e-6. The surf pick p3 is K2's exact second minimum on ring0;
-  the reference computes it on a quantized grid (~3e-5 m^2 steps), so p3
-  agrees except where two candidates' exact distances lie within 1e-4 m^2,
-  checked for the picks that can pass LO's 25 m^2 gate.
+- ring_slab_assoc against the reference's under each of its four impls and
+  an unknown name (which both run as "packed"), corner and surf, on ring
+  scans with duplicate points, an all-SENTINEL ring and queries on
+  candidates: every pick p0 / p2 / p3 identical. Under "packed" and "mxu"
+  every distance is identical too, and d3 under every impl: the reference's
+  XLA code contracts its sums of products into fused multiply-adds, and the
+  port's plain versions emulate each exactly (fma_f32), in XLA's order,
+  |q|^2 + |c|^2 - 2 q.c's q.c as fma(qz, cz, fma(qy, cy, qx*cx)) included.
+  Under "xla" and "pallas", d0 / d2 within 1e-6 relative: the exact
+  kernels round (dx^2 + dy^2) + dz^2 without fusing.
+- ring_min1_packed_plain and ring_min1_mxu_plain against the jitted
+  reference on every ring case of kernel_cases.py (quantized ties broken by
+  the lower slot, duplicates, clipped and all-SENTINEL rings, dense clouds):
+  bit for bit.
+- fma_f32 against exact rational arithmetic, a double-rounding case of the
+  plain float64 emulation included; slab_from_flat against the reference:
+  identical slabs.
 """
 
+from fractions import Fraction
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -212,10 +227,9 @@ def test_ring_min2_dispatch_has_no_fallback():
         tra.ring_min2(q, s)
 
 
-@pytest.mark.parametrize("mode", ["corner", "surf"])
-def test_ring_slab_assoc_matches_jax_exact_impl(rng, mode):
-    S, C = 16, 64
-    # rings as noisy circles (a scan's structure), tails SENTINEL-padded
+def _ring_scan(rng, S=16, C=64, n_q=200):
+    """Rings as noisy circles (a scan's structure), tails SENTINEL-padded,
+    queries near real candidates, so gated picks are realistic."""
     slab = np.full((S, C, 3), jra.SENTINEL, np.float32)
     for s in range(S):
         n = int(rng.integers(C // 2, C))
@@ -224,26 +238,145 @@ def test_ring_slab_assoc_matches_jax_exact_impl(rng, mode):
         slab[s, :n] = np.stack([r * np.cos(th), r * np.sin(th),
                                 np.full(n, 0.2 * s)], 1)
         slab[s, :n] += rng.normal(0, 0.05, (n, 3))
-    # queries near real candidates, so gated picks are realistic
     live = slab[slab[..., 0] < jra.SENTINEL * 0.5]
-    q = (live[rng.integers(0, len(live), 200)]
-         + rng.normal(0, 0.5, (200, 3))).astype(np.float32)
+    q = (live[rng.integers(0, len(live), n_q)]
+         + rng.normal(0, 0.5, (n_q, 3))).astype(np.float32)
+    return q, slab
+
+
+def _assoc(q, slab, mode, impl):
     want = jra.ring_slab_assoc(jnp.asarray(q), jra.RingSlab(jnp.asarray(slab)),
-                               nearby_scan=2.5, mode=mode, impl="xla")
+                               nearby_scan=2.5, mode=mode, impl=impl)
     got = tra.ring_slab_assoc(torch.from_numpy(q),
                               tra.RingSlab(torch.from_numpy(slab)),
-                              nearby_scan=2.5, mode=mode)
+                              nearby_scan=2.5, mode=mode, impl=impl)
+    assert set(got) == set(want)
+    return {k: got[k].numpy() for k in got}, {k: np.asarray(want[k])
+                                               for k in want}
+
+
+@pytest.mark.parametrize("mode", ["corner", "surf"])
+def test_ring_slab_assoc_matches_jax_exact_impl(rng, mode):
+    q, slab = _ring_scan(rng)
+    got, want = _assoc(q, slab, mode, "xla")
     for k in ("d0", "d2"):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
-                                   rtol=1e-6)
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6)
     for k in ("p0", "p2"):
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+        np.testing.assert_array_equal(got[k], want[k])
+    if mode == "surf":  # the quantized ring0 pick, as the reference's
+        np.testing.assert_array_equal(got["p3"], want["p3"])
+        np.testing.assert_array_equal(got["d3"], want["d3"])
+        assert (got["d3"] < 25.0).sum() > 100
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """The reference's impl="pallas" runs its Pallas kernel, which the CPU
+    backend takes in interpret mode only (as tests/test_ring_assoc.py runs
+    it)."""
+    kernel = jra.ring_min2_pallas
+    monkeypatch.setattr(jra, "ring_min2_pallas", lambda q, s: kernel(
+        q, s, q_tile=64, interpret=True))
+
+
+@pytest.mark.parametrize("mode", ["corner", "surf"])
+@pytest.mark.parametrize("impl", ["mxu", "packed", "xla", "pallas",
+                                  "unknown"])
+def test_ring_slab_assoc_matches_jax_every_impl(rng, pallas_interpret, impl,
+                                                mode):
+    q, slab = _ring_scan(rng, n_q=400)
+    slab[3, 5] = slab[3, 9]  # duplicates: exact ties
+    slab[4, 20] = slab[4, 2]
+    slab[7] = jra.SENTINEL  # an all-SENTINEL ring
+    q[:8] = slab[3, 9]  # queries on the duplicated points
+    q[8:16] = slab[4, 2]
+    got, want = _assoc(q, slab, mode, impl)
+    exact = impl in ("xla", "pallas")
+    for k in got:
+        if k.startswith("p") or not exact or k == "d3":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
+                                       err_msg=k)
+    assert (got["d0"][:16] == 0).all()
     if mode == "surf":
-        p3_t, p3_j = got["p3"].numpy(), np.asarray(want["p3"])
-        d3_t = np.sum((q - p3_t) ** 2, axis=1)
-        d3_j = np.sum((q - p3_j) ** 2, axis=1)
-        np.testing.assert_allclose(got["d3"].numpy(), d3_t, rtol=1e-5)
-        gated = d3_t < 25.0
-        differ = gated & np.any(p3_t != p3_j, axis=1)
-        assert np.all(np.abs(d3_t - d3_j)[differ] < 1e-4)
-        assert gated.sum() > 100
+        assert (got["d3"][:16] == 0).all()  # the duplicate, on ring0
+        assert (got["d3"] < 25.0).sum() > 300
+
+
+@pytest.mark.parametrize("product", [True, False])
+@pytest.mark.parametrize(
+    "case", kernel_cases.ring_packed_cases() + kernel_cases.ring_min2_cases()
+    + kernel_cases.ring_min1_cases() + kernel_cases.ring_argmin2_cases(),
+    ids=lambda c: c.name)
+def test_ring_min1_packed_plain_crafted_cases(case, product):
+    """The packed forms' plain versions against the jitted reference (the
+    compiled code whose fused multiply-adds they emulate), bit for bit."""
+    q, slab_t = case.queries, case.slab_t
+    ref = jra.ring_min1_mxu if product else jra.ring_min1_packed
+    plain = tra.ring_min1_mxu_plain if product else tra.ring_min1_packed_plain
+    want = jax.jit(ref)(jnp.asarray(q), jnp.asarray(slab_t))
+    got = plain(torch.from_numpy(q), torch.from_numpy(slab_t))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.dtype == torch.int32 or g.dtype == torch.float32
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    d, slot = (g.numpy() for g in got)
+    if case.name.startswith("packed_quant_ties"):
+        # ring 6 lies past the clip: the clip, slot 0; ring 7 likewise
+        clip = np.float32(64.0 * 0.999999)
+        assert (slot[6:] == 0).all() and (d[6:] <= clip).all()
+        assert (d[6:] > clip - 1e-4).all()
+        assert (d[:6] < clip).mean() > 0.9
+
+
+def test_ring_min1_packed_dispatch_has_no_fallback():
+    q = torch.zeros((4, 3), device="meta")
+    s = torch.zeros((8, 3, 16), device="meta")
+    for product in (True, False):
+        with pytest.raises(ValueError, match="CUDA tensor required"):
+            tra.ring_min1_packed(q, s, product)
+
+
+def _f32_round(x: Fraction) -> np.float32:
+    """x rounded to the nearest float32, ties to even, exactly."""
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    err = [abs(Fraction(float(c)) - x) for c in cands]
+    best = min(err)
+    ties = [c for c, e in zip(cands, err) if e == best]
+    return min(ties, key=lambda c: int(np.array(c).view(np.int32)) & 1)
+
+
+def test_fma_f32_rounds_once(rng):
+    # exact sum just below a float32 midpoint that the float64 sum rounds
+    # onto: float64 then float32 rounding (ties to even) would go up
+    a = np.float32(1 + 2.0**-23)
+    b = np.float32(2.0**-24 * (1 - 2.0**-23))
+    c = np.float32(1 + 2.0**-23)
+    naive = np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+    assert naive == np.float32(1 + 2.0**-22)
+    a_, b_, c_ = (torch.tensor([v]) for v in (a, b, c))
+    assert tra.fma_f32(a_, b_, c_).item() == c
+    x = rng.normal(0, 1, (3, 2000)) * 10.0 ** rng.integers(-6, 6, (3, 2000))
+    x = x.astype(np.float32)
+    got = tra.fma_f32(*(torch.from_numpy(v) for v in x)).numpy()
+    want = [_f32_round(Fraction(float(p)) * Fraction(float(r))
+                       + Fraction(float(t))) for p, r, t in x.T]
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+
+
+def test_slab_from_flat_matches_jax(rng):
+    n, S, cap = 3000, 16, 128
+    xyz = rng.uniform(-40, 40, (n, 3)).astype(np.float32)
+    ring = rng.integers(0, S, n).astype(np.int32)
+    ring[:400] = 5  # one ring past its capacity
+    mask = rng.random(n) < 0.8
+    want = jra.slab_from_flat(jnp.asarray(xyz), jnp.asarray(ring),
+                              jnp.asarray(mask), S, cap)
+    got = tra.slab_from_flat(torch.from_numpy(xyz), torch.from_numpy(ring),
+                             torch.from_numpy(mask), S, cap)
+    np.testing.assert_array_equal(got.xyz.numpy(), np.asarray(want.xyz))
+    assert (got.xyz[5] < jra.SENTINEL).all()  # ring 5 full

@@ -3,7 +3,8 @@ vloam_tpu/backend/loop_closure.py).
 
 Spatially close, non-consecutive frames are registered against each other
 with the odometry's own feature extraction and point-to-line / point-to-plane
-solver (register_scan, solve_lo: kernels K1, K2 and ring_min1 on the card),
+solver (register_scan, solve_lo: kernels K1 and ring_min1_packed on the
+card),
 the accepted relative poses become loop edges, and the whole trajectory is
 re-optimized by the pose-graph solver (parallel/pose_graph.py).
 """

@@ -273,7 +273,7 @@ def _launch_ranks(n: int, argv: list[str]) -> int:
     root = str(Path(__file__).resolve().parent.parent)
     env["PYTHONPATH"] = os.pathsep.join(
         [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-    return launch(["-m", "vloam_tpu_torch", *argv], n, env=env)
+    return launch(["-m", "vloam_tpu_torch", *argv], n, env=env).code
 
 
 def main(argv=None):

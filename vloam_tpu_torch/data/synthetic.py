@@ -1,7 +1,8 @@
 """Synthetic KITTI-like street scene, HDL-64 raycaster and pinhole camera
 renderer (host-side numpy).
 
-The urban-scene, LiDAR and camera parts of vloam_tpu/data/synthetic.py, with
+The urban and highway scenes, LiDAR and camera parts of
+vloam_tpu/data/synthetic.py, with
 the same arithmetic, so the same seeds give bit-identical scans and images
 (tests/test_torch_loam_engine.py and tests/test_torch_vision.py hold the two
 equal). The port keeps its own copy so that it, and
@@ -63,6 +64,34 @@ def urban_scene(seed: int = 0, extent: float = 60.0, n_boxes: int = 14,
                       rng.uniform(3, 6)])
     return Scene(boxes=np.asarray(boxes, np.float64),
                  poles=np.asarray(poles, np.float64))
+
+
+def highway_scene(seed: int = 0, extent: float = 260.0,
+                  tex_scale: float = 0.06) -> Scene:
+    """Feature-poor highway corridor, the KITTI seq-01 stress regime (the
+    reason for the reference's detach_VO_LO flag): near-featureless images
+    (tex_scale 0.06), flat ground, guardrail posts every ~8 m on both
+    shoulders and a few distant structures. Meant to be driven fast (speed
+    >= 3 m a frame)."""
+    rng = np.random.default_rng(seed)
+    boxes = []
+    # a few distant buildings / sound barriers, far off the road
+    for i in range(6):
+        x0 = -extent + (2 * extent) * i / 6 + rng.uniform(0, 30)
+        side = 1 if i % 2 == 0 else -1
+        y0 = side * rng.uniform(35, 60)
+        boxes.append([x0, x0 + rng.uniform(15, 40),
+                      min(y0, y0 + side * 6.0), max(y0, y0 + side * 6.0),
+                      -1.73, rng.uniform(3, 6)])
+    poles = []
+    # guardrail posts every ~8 m on both shoulders (thin, low)
+    for x in np.arange(-extent, extent, 8.0):
+        for side in (-1.0, 1.0):
+            poles.append([x + rng.uniform(-0.3, 0.3), side * 7.5,
+                          0.06, -1.73, -0.9])
+    return Scene(boxes=np.asarray(boxes, np.float64),
+                 poles=np.asarray(poles, np.float64),
+                 tex_scale=tex_scale)
 
 
 def hdl64_elevations(n_scans: int = 64) -> np.ndarray:

@@ -8,8 +8,11 @@ K3 zncc_describe (csrc/zncc_describe.cu) <- vision/features.py::
                  _describe_zncc_pallas (ZNCC patch descriptors)
 S1 ring_min1, ring_argmin2 (csrc/ring_min1.cu) <- scripts/
                  profile_ring_variants.py::_kern_min1, _kern_argmin (the
-                 min-only reduction under corner association; K2's outputs
-                 by two argmin passes)
+                 exact min-only reduction, impl "xla"; K2's outputs by two
+                 argmin passes)
+   ring_min1_packed (csrc/ring_min1.cu) <- ring_assoc.py::ring_min1_mxu,
+                 ring_min1_packed (XLA in the reference): the packed-key
+                 minimum of the engines' LO association (impl "mxu")
 S2 grid_probe    (csrc/grid_probe.cu)   <- scripts/profile_pallas_gather.py::
                  make_pallas_gather[_tiled] under the map's 8-cell probe:
                  hashes, row gather and planar layout of both grids of a
@@ -36,7 +39,7 @@ from . import build
 
 LAUNCHES = {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0,
             "row_gather": 0, "grid_probe": 0, "ring_min1": 0,
-            "ring_argmin2": 0}
+            "ring_argmin2": 0, "ring_min1_packed": 0}
 
 
 def reset_launches() -> None:
@@ -62,10 +65,10 @@ def _check(lib, err: int, kernel: str) -> None:
 
 
 def _ring_reduce(name: str, n_out: int, queries: torch.Tensor,
-                 slab_t: torch.Tensor):
+                 slab_t: torch.Tensor, *extra):
     """Launch one of the per-ring reductions (vloam_<name>): queries [Q, 3]
-    f32, slab_t [S, 3, C] f32 -> n_out // 2 pairs of ([S, Q] f32 distance,
-    [S, Q] int32 slot)."""
+    f32, slab_t [S, 3, C] f32 (and `extra` arguments after the shape) ->
+    n_out // 2 pairs of ([S, Q] f32 distance, [S, Q] int32 slot)."""
     _require(queries, "queries", torch.float32, 2)
     _require(slab_t, "slab_t", torch.float32, 3)
     Q, S, C = queries.shape[0], slab_t.shape[0], slab_t.shape[2]
@@ -87,7 +90,7 @@ def _ring_reduce(name: str, n_out: int, queries: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"vloam_{name}")(
             queries.data_ptr(), slab_t.data_ptr(),
-            *(o.data_ptr() for o in outs), Q, S, C, stream)
+            *(o.data_ptr() for o in outs), Q, S, C, *extra, stream)
     _check(lib, err, name)
     LAUNCHES[name] += 1
     return outs
@@ -109,6 +112,21 @@ def ring_argmin2(queries: torch.Tensor, slab_t: torch.Tensor):
     """S1's argmin variant on the card: K2's inputs and K2's four outputs,
     computed by two argmin passes with the winner's slot masked."""
     return _ring_reduce("ring_argmin2", 4, queries, slab_t)
+
+
+def ring_min1_packed(queries: torch.Tensor, slab_t: torch.Tensor,
+                     product: bool, bits: int, scale: float, clip: float):
+    """The packed-key per-ring minimum on the card: K2's inputs -> (d [S, Q]
+    f32 dequantized, slot [S, Q] int32), over max(|q|^2 + |c|^2 - 2 q.c, 0)
+    (product) or the exact (q - c)^2; bits, scale, clip as
+    lidar.ring_assoc._quant gives them (2^bits >= C, scale a power of
+    two). Inputs must be finite."""
+    C = slab_t.shape[-1]
+    if not (1 <= bits <= 29 and C <= 1 << bits):
+        raise ValueError(f"ring_min1_packed: {bits} slot bits do not hold "
+                         f"{C} slots")
+    return _ring_reduce("ring_min1_packed", 2, queries, slab_t, int(product),
+                        bits, float(scale), float(clip))
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -26,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# -fmad=false: the ring reductions' distances (ring_min2.cu, ring_min1.cu)
-# must round like the plain PyTorch versions (separately rounded products and
+# -fmad=false: the ring reductions' distances (ring_min2.cu, ring_min1.cu;
+# the packed form's fused multiply-adds are explicit) must round like the plain PyTorch versions (separately rounded products and
 # sums) for their argmins to match exactly.
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -135,11 +135,11 @@ _SMEM = re.compile(r"(\d+) bytes smem")
 def _kernel_name(mangled: str) -> str:
     """'ring_min2_kernel' or 'select_rings_kernel<10>' from ptxas' mangled
     entry name (its length-prefixed '..._kernel' part and, if it is a
-    template, its integer argument)."""
+    template, its integer or bool argument: 'ring_min1_packed_kernel<1>')."""
     end = mangled.find("_kernel") + len("_kernel")
     for n in range(len("_kernel"), end):  # the name's length prefix
         if mangled[:end - n].endswith(str(n)):
-            arg = re.match(r"ILi(\d+)E", mangled[end:])
+            arg = re.match(r"IL[ib](\d+)E", mangled[end:])
             name = mangled[end - n:end]
             return f"{name}<{arg.group(1)}>" if arg else name
     return mangled
@@ -183,6 +183,9 @@ def load() -> ctypes.CDLL:
     lib.vloam_ring_min2.restype = i
     lib.vloam_ring_min1.argtypes = [p, p, p, p, i, i, i, p]
     lib.vloam_ring_min1.restype = i
+    lib.vloam_ring_min1_packed.argtypes = [p, p, p, p, i, i, i, i, i, f, f,
+                                           p]
+    lib.vloam_ring_min1_packed.restype = i
     lib.vloam_ring_argmin2.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.vloam_ring_argmin2.restype = i
     lib.vloam_row_gather.argtypes = [p, p, p, i, i, p]

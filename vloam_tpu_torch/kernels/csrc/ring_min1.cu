@@ -1,4 +1,5 @@
-// S1: the two variants of the per-ring reduction behind LO association.
+// S1: the two variants of the per-ring reduction behind LO association, and
+// the packed-key reduction of its default form.
 //
 // Replaces: scripts/profile_ring_variants.py::run_pallas with its kernels
 // _kern_min1 (per ring and query the minimum squared distance and its slot,
@@ -11,6 +12,10 @@
 //                       it launches this and not K2 (ring_min2.cu).
 //   vloam_ring_argmin2  the same inputs -> K2's (dmin, amin, d2, a2), in the
 //                       argmin-then-mask formulation; timed beside K2.
+//   vloam_ring_min1_packed  the same inputs -> the smallest packed key per
+//                       ring and query as (d [S,Q] f32, slot [S,Q] i32): the
+//                       engines' LO association (impl "mxu"; "packed"), see
+//                       below.
 //
 // What bounds them on Hopper: instruction issue, as K2 (ring_min2.cu, whose
 // notes this follows). A (query, slot) pair costs 8 float instructions that
@@ -77,7 +82,28 @@
 // resolves against fewer blocks an SM).
 // Its outputs equal K2's four, bit for bit; ring_min1's equal K2's first
 // two.
+//
+// ring_min1_packed is the reduction of ring_slab_assoc's default impl "mxu"
+// and of "packed" (vloam_tpu/lidar/ring_assoc.py::ring_min1_mxu,
+// ring_min1_packed; XLA in the reference, no Pallas kernel): per ring and
+// query the smallest key (trunc(min(d, clip) * scale) << bits) | slot, one
+// int32, returned as (d dequantized, slot). The key carries its slot, so
+// the minimum is one integer minimum a pair, ties go to the lowest slot
+// without a rule, and the groups' minima merge in any order: no chunk
+// tracking and no resolve pass. It keeps ring_min1's staging and block
+// shape (float4 tiles, kQpt queries a thread, kSplit groups over a tile's
+// slots). d is either form, rounded as the reference's compiled CPU code
+// rounds it (XLA contracts each sum of products into fused multiply-adds)
+// and as ring_assoc's plain versions emulate it, so all three agree bit for
+// bit:
+//   difference  fma(dz, dz, fma(dy, dy, dx * dx)), d = q - c
+//   product     max((|q|^2 + |c|^2) - 2 q.c, 0), |p|^2 = fma(z, z, fma(y, y,
+//               x * x)) and q.c = fma(qz, cz, fma(qy, cy, qx * cx)); |c|^2
+//               is computed once a slot while the tile is staged (its 4th
+//               float)
+// Issue-bound as ring_min1: ~11 instructions a pair in either form.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -381,6 +407,90 @@ ring_argmin2_kernel(const float* __restrict__ queries,  // [Q, 3]
   }
 }
 
+__device__ __forceinline__ float sq_norm(float x, float y, float z) {
+  return __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x)));
+}
+
+template <bool kProduct>
+__global__ void __launch_bounds__(kMin1Threads)
+ring_min1_packed_kernel(const float* __restrict__ queries,  // [Q, 3]
+                        const float* __restrict__ slab_t,   // [S, 3, C]
+                        float* __restrict__ dout, int* __restrict__ aout,
+                        int Q, int C, int bits, float scale, float inv_scale,
+                        float clip) {
+  __shared__ float4 tile[kTile];  // {x, y, z, |c|^2 or 0}
+  __shared__ int s_k[kSplit][kQpt][kGroup];
+  const int s = blockIdx.x;
+  const int grp = threadIdx.x / kGroup;
+  const int tid = threadIdx.x % kGroup;
+  const float* ring = slab_t + static_cast<size_t>(s) * 3 * C;
+  const int q0 = blockIdx.y * (kGroup * kQpt) + tid;
+
+  float qx[kQpt], qy[kQpt], qz[kQpt], qq[kQpt];
+  int best[kQpt];
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    // queries past Q repeat the last one and are not stored
+    const int q = min(q0 + j * kGroup, Q - 1);
+    qx[j] = queries[3 * q];
+    qy[j] = queries[3 * q + 1];
+    qz[j] = queries[3 * q + 2];
+    qq[j] = kProduct ? sq_norm(qx[j], qy[j], qz[j]) : 0.f;
+    best[j] = INT_MAX;
+  }
+
+  for (int t0 = 0; t0 < C; t0 += kTile) {
+    const int n = min(kTile, C - t0);
+    __syncthreads();  // the previous tile is done with
+    for (int i = threadIdx.x; i < n; i += kMin1Threads) {
+      const float x = ring[t0 + i], y = ring[C + t0 + i],
+                  z = ring[2 * C + t0 + i];
+      tile[i] = make_float4(x, y, z, kProduct ? sq_norm(x, y, z) : 0.f);
+    }
+    __syncthreads();
+    // group g takes the g-th share of the tile's slots
+    const int per = (n + kSplit - 1) / kSplit;
+    const int end = min(n, (grp + 1) * per);
+    for (int i = grp * per; i < end; ++i) {
+      const float4 p = tile[i];  // one broadcast load for kQpt queries
+      const int col = t0 + i;
+#pragma unroll
+      for (int j = 0; j < kQpt; ++j) {
+        float d;
+        if (kProduct) {
+          const float qc = __fmaf_rn(
+              qz[j], p.z, __fmaf_rn(qy[j], p.y, __fmul_rn(qx[j], p.x)));
+          d = fmaxf(__fsub_rn(__fadd_rn(qq[j], p.w), __fmul_rn(2.f, qc)),
+                    0.f);
+        } else {
+          const float dx = __fsub_rn(qx[j], p.x);
+          const float dy = __fsub_rn(qy[j], p.y);
+          const float dz = __fsub_rn(qz[j], p.z);
+          d = sq_norm(dx, dy, dz);
+        }
+        const int key =
+            (__float2int_rz(__fmul_rn(fminf(d, clip), scale)) << bits) | col;
+        best[j] = min(best[j], key);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) s_k[grp][j][tid] = best[j];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kQpt; ++j) {
+    const int q = q0 + j * kGroup;
+    if (j % kSplit != grp || q >= Q) continue;
+    int m = s_k[0][j][tid];
+#pragma unroll
+    for (int g = 1; g < kSplit; ++g) m = min(m, s_k[g][j][tid]);
+    const size_t o = static_cast<size_t>(s) * Q + q;
+    dout[o] = __fmul_rn(__int2float_rn(m >> bits), inv_scale);
+    aout[o] = m & ((1 << bits) - 1);
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -419,5 +529,26 @@ extern "C" int vloam_ring_argmin2(const float* queries, const float* slab_t,
   ring_argmin2_kernel<<<grid, kMin1Threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       queries, slab_t, dmin, amin, d2, a2, Q, C, seg, n_segs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// product: the |q|^2 + |c|^2 - 2 q.c form ("mxu"), else the difference form
+// ("packed"). bits: slot bits (2^bits >= C); scale: the quantization scale,
+// a power of two; clip: the saturation. Inputs must be finite.
+extern "C" int vloam_ring_min1_packed(const float* queries,
+                                      const float* slab_t, float* dout,
+                                      int* aout, int Q, int S, int C,
+                                      int product, int bits, float scale,
+                                      float clip, void* stream) {
+  const int per_block = kGroup * kQpt;
+  const dim3 grid(S, (Q + per_block - 1) / per_block);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float inv_scale = 1.f / scale;  // exact: scale is a power of two
+  if (product)
+    ring_min1_packed_kernel<true><<<grid, kMin1Threads, 0, st>>>(
+        queries, slab_t, dout, aout, Q, C, bits, scale, inv_scale, clip);
+  else
+    ring_min1_packed_kernel<false><<<grid, kMin1Threads, 0, st>>>(
+        queries, slab_t, dout, aout, Q, C, bits, scale, inv_scale, clip);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,8 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from .knn import dist_key, key_dist, smallest_keys
+from .ring_assoc import sq_dist
 from .voxel import as_u32, hash_avalanche, reciprocal_f32, _mul32
 
 SENTINEL = 1.0e6
@@ -228,3 +230,25 @@ def knn_among_planar(cand: torch.Tensor, queries: torch.Tensor, k: int = 5):
     nd, ni = torch.topk(-d, k, dim=1, largest=True, sorted=True)
     near = torch.take_along_dim(cand, ni[None, :, :], dim=2)  # [3, Q, k]
     return -nd, near
+
+
+def knn_among(cand: torch.Tensor, queries: torch.Tensor, k: int = 5):
+    """k-NN among pre-gathered planar candidates [3, Q, C], xyz-minor:
+    (d_sq [Q, k] ascending, near [Q, k, 3]) (reference gridmap.py:194).
+    Distances round as the reference's compiled sum of squares,
+    fma(dz, dz, fma(dy, dy, dx*dx)); equal distances keep the lower slot
+    first, as its top_k (lidar/knn.py's int64 keys)."""
+    d = sq_dist(cand, queries.T[:, :, None])  # [Q, C]
+    idx = torch.arange(d.shape[1], device=d.device)
+    key = smallest_keys(dist_key(d, idx), k)
+    slot = key & 0xFFFFFFFF
+    near = torch.take_along_dim(cand, slot[None], dim=2)  # [3, Q, k]
+    return key_dist(key), near.permute(1, 2, 0)
+
+
+def grid_knn(g: FeatureGrid, queries: torch.Tensor, cell: float, k: int = 5):
+    """k-NN among the points of each query's 8-cell probe, exact for true
+    neighbours closer than cell / 2 (reference gridmap.py:202): (d_sq
+    [Q, k] ascending, near [Q, k, 3]); slots past the candidates give
+    SENTINEL points at d_sq ~3e12."""
+    return knn_among(grid_gather_plain(g, queries, cell), queries, k)

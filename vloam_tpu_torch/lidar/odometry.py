@@ -4,8 +4,9 @@ reference laser_odometry.cpp solveLO() :187-536): two outer rounds of
 point-to-plane residuals with Huber(0.1) loss and a quaternion-local
 parameterization.
 
-Correspondences come from ring_assoc.ring_slab_assoc, whose per-ring
-min-2 reduction is the hand-written kernel K2 on CUDA. The (q, t)
+Correspondences come from ring_assoc.ring_slab_assoc at the reference's
+default impl="mxu", whose per-ring packed minimum is the hand-written
+kernel ring_min1_packed on CUDA. The (q, t)
 parameters transform a current-frame point into the last frame:
 lp = R(q) p + t (TransformToStart, :149-167).
 

@@ -68,6 +68,17 @@ def normal_equations(fam: ResidualFamily, huber_delta: float):
     return H, g, cost
 
 
+def family_cost(families, huber_delta: float) -> torch.Tensor:
+    """The Huber cost [...] of the families at delta = 0, summed over them
+    (reference solver/lm.py:72: the cost term of normal_equations alone)."""
+    cost = torch.zeros(())
+    for fam in families:
+        sq = torch.sum(fam.r * fam.r, dim=-1)
+        cost = cost + torch.sum(huber_cost(sq, huber_delta)
+                                * fam.mask.to(torch.float32), dim=-1)
+    return cost
+
+
 def solve_damped(H: torch.Tensor, g: torch.Tensor,
                  lam: torch.Tensor) -> torch.Tensor:
     """Jacobi-preconditioned damped solve: (H + lam*diag(H)) x = g.

@@ -1,5 +1,11 @@
 """Measurement entry points of the port, run on the GPU:
 
+    python -m vloam_tpu_torch.tools.bench [--device cpu]
+
+the port's counterpart of bench.py and scripts/bench_extras.py (one JSON
+line: LoamEngine frames/s and bench.py's other keys, the card, the host
+CPU, VloamEngine frames/s, the pose graph's Gauss-Newton steps a second),
+
     python -m vloam_tpu_torch.tools.profile_row_gather
     python -m vloam_tpu_torch.tools.profile_grid_probe [--parent DIR]
     python -m vloam_tpu_torch.tools.profile_ring_variants [--shapes] \
@@ -12,11 +18,12 @@ the map probe that fuses it) and scripts/profile_ring_variants.py, and
     python -m vloam_tpu_torch.tools.profile_select_rings
     python -m vloam_tpu_torch.tools.profile_primitives
 
-(K3 and K1 by parts, warp-primitive latencies). All raise without a GPU.
+(K3 and K1 by parts, warp-primitive latencies). All raise without a GPU
+(bench unless --device cpu).
 Beside them: timing.py (device time of a call, bounds), kernel_cases.py
-(crafted inputs for K1 select_rings, K2 ring_min2, S1 ring_min1 and
-ring_argmin2, K3 zncc_describe and S2 grid_probe: plain numpy, used by the
-CPU tests, the GPU tests and chip_smoke.py) and
+(crafted inputs for K1 select_rings, K2 ring_min2, S1 ring_min1,
+ring_argmin2 and ring_min1_packed, K3 zncc_describe and S2 grid_probe:
+plain numpy, used by the CPU tests, the GPU tests and chip_smoke.py) and
 
     python -m vloam_tpu_torch.tools.trajectories save|diff ...
 

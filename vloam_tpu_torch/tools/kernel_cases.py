@@ -1,6 +1,7 @@
 """Crafted inputs for the kernels whose rules are easiest to get wrong: K1
 select_rings (strict sector selection), K2 ring_min2 (per-ring 2-smallest),
-S1 ring_min1 (per-ring minimum) and ring_argmin2 (argmin, mask, argmin), K3
+S1 ring_min1 (per-ring minimum) and ring_argmin2 (argmin, mask, argmin),
+ring_min1_packed (the packed-key minimum of the quantized forms), K3
 zncc_describe (patch descriptors) and S2 grid_probe (the map's 8-cell
 probe). Plain numpy from a seed; no device logic.
 
@@ -317,6 +318,42 @@ def ring_argmin2_cases(seed: int = 16835) -> list[Min2Case]:
     slab = np.full((_S, 133, 3), SENTINEL, np.float32)
     slab[3, 77] = [1.0, 2.0, 3.0]
     cases.append(Min2Case("argmin2_all_sentinel", queries(65), slab))
+    return cases
+
+
+def ring_packed_cases(seed: int = 16836) -> list[Min2Case]:
+    """The packed-key minimum's rules, on candidates near the queries (the
+    random cases above put most minima past the 64 m^2 clip): quantized
+    ties broken by the lower slot, whose exact distance is the larger
+    (candidates 1e-6 to 1e-5 m^2 apart, steps of 3e-5 m^2 at C = 512),
+    exact duplicates, a ring whose candidates all lie past the clip (slot
+    0), an all-SENTINEL ring, and a dense 4 m cloud at counts no block or
+    tile divides."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for C in (512, 130):
+        q = rng.uniform(-20, 20, (96, 3)).astype(np.float32)
+        slab = np.full((_S, C, 3), SENTINEL, np.float32)
+        for s in range(_S):
+            slab[s] = q[rng.integers(0, len(q), C)] + rng.normal(
+                0, 1.0, (C, 3)).astype(np.float32)
+        for i in range(len(q)):  # query i: two near-equal candidates
+            s, a = i % _S, int(rng.integers(0, C - 1))
+            b = int(rng.integers(a + 1, C))
+            off = rng.normal(0, 1, 3)
+            off /= np.linalg.norm(off)
+            slab[s, b] = q[i] + np.float32(0.5) * off.astype(np.float32)
+            slab[s, a] = q[i] + np.float32(0.5 + 1e-5 * rng.random()) \
+                * off.astype(np.float32)
+        slab[5, 40] = slab[5, 7]  # exact duplicates
+        slab[6] = 100.0  # all past the clip from every query
+        slab[7] = SENTINEL
+        cases.append(Min2Case(f"packed_quant_ties_{C}", q, slab))
+    for Q, C in ((769, 513), (255, 9), (33, 2)):
+        q = rng.uniform(0, 4, (Q, 3)).astype(np.float32)
+        slab = rng.uniform(0, 4, (_S, C, 3)).astype(np.float32)
+        slab[0, C // 2:] = SENTINEL
+        cases.append(Min2Case(f"packed_dense_{Q}x{C}", q, slab))
     return cases
 
 

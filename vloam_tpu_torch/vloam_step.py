@@ -6,9 +6,9 @@ Per chunk of F frames, two frame loops over state that stays on the device
 
   1. vision + LO, per frame: detect / describe (K3) / match -> depth grid ->
      VO solve seeded from the previous frame's LO f2f (reference
-     visual_odometry.cpp:269-281) -> scan registration (K1) -> f2f LO (K2)
-     seeded from the same frame's VO when detach_VO_LO is False
-     (laser_odometry.cpp:223-236) -> voxel-downsampled map stacks,
+     visual_odometry.cpp:269-281) -> scan registration (K1) -> f2f LO
+     (ring_min1_packed) seeded from the same frame's VO when detach_VO_LO
+     is False (laser_odometry.cpp:223-236) -> voxel-downsampled map stacks,
   2. mapping, per frame: scan-to-map refinement of the LO world poses over
      those stacks, carrying the grid map.
 
