@@ -9,9 +9,11 @@ checkpoints, loop closure), the per-stage host engine and the distributed
 Phases (one line each; any failure ends the run with a nonzero exit):
   1. device: the card's name and power limit; CUDA required, TF32 off
   2. build: compile the hand-written kernels from kernels/csrc with nvcc;
-     ptxas' registers, spills and shared memory of the six redesigned
-     kernels (K1, K2, K3, ring_min1, ring_argmin2, grid_probe) and of
-     ring_min1_packed in both its forms
+     ptxas' registers, spills and shared memory of every kernel (K1, K2,
+     K3, ring_min1, ring_argmin2, grid_probe, ring_min1_packed in each
+     instantiation, row_gather); none may spill. The machine code of
+     ring_min1_packed (cuobjdump -sass): instructions a (query, slot) pair
+     in each instantiation's main loop; no F2I in the fast path's
   frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
      1242 x 375 camera images, and three more 20-frame polar drives for the
      batch engine's other streams, rendered in worker processes
@@ -233,6 +235,11 @@ K2_BEFORE_US = {"surf": 44.6, "corner": 8.3}
 # and 4 (PERF.md section 6)
 K3_BEFORE_US = 15.4
 RING_MIN1_BEFORE_US = {"corner": 6.2, "surf": 31.6}
+# ... and of the first ring_min1_packed (an F2I conversion, a shift
+# and an OR a pair, ring_min1's block shape), product and difference form,
+# the same method and shapes as phase 4 (PERF.md section 6)
+RING_MIN1_PACKED_BEFORE_US = {"product": {"corner": 6.4, "surf": 31.4},
+                              "difference": {"corner": 5.9, "surf": 28.4}}
 # ... and of the first ring_argmin2 (one query a thread, two passes over a
 # [3, C] slab read three floats a slot) at the ring-variants entry point's
 # surf shape 2048 x [64,3,512], as phase 12 times it (PERF.md section 6)
@@ -305,10 +312,14 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
+    if parts := build.measurement_defines(
+            lib.with_suffix(".log").read_text().split()):
+        fail(f"the kernels' library was built with measurement switches "
+             f"{parts}")
     redesigned = {"select_rings_kernel", "ring_min2_kernel",
                   "zncc_describe_kernel", "ring_min1_kernel",
                   "ring_argmin2_kernel", "grid_probe_kernel",
-                  "ring_min1_packed_kernel"}
+                  "ring_min1_packed_kernel", "row_gather_kernel"}
     usage = {k: v for k, v in build.resource_usage().items()
              if k.split("<")[0] in redesigned}
     if {k.split("<")[0] for k in usage} != redesigned:
@@ -321,6 +332,13 @@ def build_phase() -> None:
               for name, u in sorted(usage.items())), flush=True)
     if any(u["spill_stores"] or u["spill_loads"] for u in usage.values()):
         fail("a kernel spills registers")
+    lines, converting = build.packed_sass(build.sass(lib))
+    print("[2 sass] ring_min1_packed: " + "; ".join(lines), flush=True)
+    if converting:
+        fail(f"ring_min1_packed: F2I in the fast path of {converting}")
+    if sum(", fast)" in line for line in lines) < 2:
+        fail("ring_min1_packed: the fast path's instantiations are missing "
+             "from the machine code")
 
 
 class Calib:
@@ -554,6 +572,9 @@ def ring_phase(ff) -> tuple[list, dict]:
               f"{w} {t} us" for w, t in K2_BEFORE_US.items())
           + ", ring_min1 " + ", ".join(f"{w} {t} us" for w, t in
                                        RING_MIN1_BEFORE_US.items())
+          + ", ring_min1_packed " + ", ".join(
+              f"{form} " + ", ".join(f"{w} {t} us" for w, t in ts.items())
+              for form, ts in RING_MIN1_PACKED_BEFORE_US.items())
           + "; chunks of 8 surf slots whose minimum is below the running "
           f"second minimum: {share[0]:.1%} per query, {share[1]:.1%} per "
           f"warp of 128 queries {clk}", flush=True)

@@ -37,10 +37,12 @@ needs JAX.)
   16 and 7), each with all its keypoints and with 3 fewer (a count no warp
   or block grouping divides), and on an image that starts 4 bytes into its
   buffer (rows at other 16-byte alignments).
-- S2 row_gather: bit-identical to table[idx] at both map row widths and at
-  widths below, at and above a warp of 16-byte words, with repeated and
-  boundary rows and a row count that is not a multiple of the block; widths
-  that are not a multiple of 4 floats and int32 indices are refused.
+- S2 row_gather: bit-identical to table[idx] at both map row widths (the
+  kernel's template widths, 48 and 96 floats) and at widths below, at and
+  above a warp of 16-byte words (the general path: 4, 12, 128, 260), with
+  the table's last row, repeated rows, one row, odd counts and counts that
+  are not a multiple of a block's 16-byte words; widths that are not a
+  multiple of 4 floats and int32 indices are refused.
 - S2 grid_probe: both grids' probe candidates in one launch bit-identical to
   the plain pair (on the card and on the CPU) on every probe case of
   kernel_cases.py (both signs, cell midpoints and borders, one job with no
@@ -59,7 +61,12 @@ needs JAX.)
   identical to ring_min1_mxu_plain / ring_min1_packed_plain on candidates
   near the queries at the engines' shapes and at a slab of many tiles, and
   on every ring case of kernel_cases.py (quantized ties, duplicates,
-  clipped and all-SENTINEL rings, dense clouds at counts no block divides).
+  clipped and all-SENTINEL rings, dense clouds at counts no block divides;
+  the fast truncation's boundaries: counts at and one ulp below an integer,
+  the clip and either side of it, the largest counts under 2^23 at 7 slot
+  bits and past it at 6, where the conversion path runs; product-form
+  distances below 0; counts that the kernel's blocks, warp shares and
+  unrolled steps do not divide).
 - ring_slab_assoc under each of the four impls: the card's picks and
   distances equal the CPU's.
 - The depth grid (vision/depth_map.py) built twice on the card: identical,
@@ -292,7 +299,9 @@ def test_ring_slab_assoc_on_card_equals_cpu(cuda, rng, impl):
 
 
 @pytest.mark.parametrize("W,N", [(96, 16384), (48, 49152), (4, 1000),
-                                 (128, 777), (260, 513)])
+                                 (128, 777), (260, 513), (48, 1), (96, 1),
+                                 (48, 1001), (96, 2049), (48, 6143),
+                                 (12, 4097), (4, 3)])
 def test_row_gather_kernel_is_bit_identical(cuda, rng, W, N):
     from vloam_tpu_torch.lidar import gridmap
 
@@ -301,7 +310,8 @@ def test_row_gather_kernel_is_bit_identical(cuda, rng, W, N):
         rng.normal(size=(nb, W)).astype(np.float32)).to(cuda)
     table[5] = float("nan")  # payload bits travel untouched
     idx = rng.integers(0, nb, N)
-    idx[:5] = [0, nb - 1, 5, 5, 7]
+    head = [nb - 1, 0, 5, 5, 7][:N]  # the last row first, repeats
+    idx[:len(head)] = head
     idx = torch.from_numpy(idx).to(cuda)
     n0 = kernels.LAUNCHES["row_gather"]
     got = gridmap.row_gather(table, idx)

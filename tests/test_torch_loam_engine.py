@@ -434,6 +434,77 @@ def test_kernel_library_hash_covers_headers(monkeypatch, tmp_path):
     assert len({before, with_header, build.library_path()}) == 3
 
 
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_123ring_min1_packed_kernelILb1ELb1ELi2ELi4ELi2EEEvPKfS2_PfPiiiNS_11PackedQuantE
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;             /* 0x00000a00ff017b82 */
+                                                                      /* 0x000fe40000000800 */
+        /*0010*/                   LDS.128 R4, [R2] ;                 /* 0x0000000002047984 */
+        /*0020*/                   FFMA.RZ.SAT R8, R5, R6, R7 ;       /* 0x0000000605087223 */
+        /*0030*/                   IMAD R9, R8, R10, R11 ;            /* 0x0000000a08097224 */
+        /*0040*/                   VIMNMX R12, R12, R9, PT ;          /* 0x000000090c0c7248 */
+        /*0050*/              @!P0 BRA 0x10 ;                         /* 0xfffffffc00008947 */
+        /*0060*/               @P1 BRA 0x0 ;                          /* 0xfffffffc00008947 */
+        /*0070*/                   I2FP.F32.S32 R3, R12 ;             /* 0x0000000c00037245 */
+        /*0080*/                   EXIT ;                             /* 0x000000000000794d */
+        /*0090*/                   BRA 0x90;                          /* 0xfffffffc00fc7947 */
+\t\t..........
+
+
+\t\tFunction : _ZN12_GLOBAL__N_123ring_min1_packed_kernelILb0ELb0ELi2ELi4ELi2EEEvPKfS2_PfPiiiNS_11PackedQuantE
+        /*0000*/                   FMNMX R2, R2, R3, PT ;             /* 0x0000000302027209 */
+        /*0010*/                   F2I.TRUNC.NTZ R4, R2 ;             /* 0x0000000200047305 */
+        /*0020*/              @P1 BRA 0x0 ;                           /* 0xfffffffc00008947 */
+        /*0030*/                   EXIT ;                             /* 0x000000000000794d */
+\t\tFunction : _ZN12_GLOBAL__N_123ring_min1_packed_kernelILb0ELb1ELi2ELi4ELi2EEEvPKfS2_PfPiiiNS_11PackedQuantE
+        /*0000*/                   F2I.TRUNC.NTZ R4, R2 ;             /* 0x0000000200047305 */
+        /*0010*/                   EXIT ;                             /* 0x000000000000794d */
+"""
+
+
+def test_sass_report_finds_the_main_loop_and_conversions():
+    """kernels.build's machine-code reading (cuobjdump -sass text) and the
+    packed kernel's report that chip_smoke.py phase 2 gates on: each
+    instantiation by its template arguments, the main loop (the innermost
+    between a backward branch and its target, not the loop around it),
+    F2I in a fast-path instantiation."""
+    fns = build.parse_sass(_SASS)
+    fast = "ring_min1_packed_kernel<1,1,2,4,2>"
+    assert sorted(fns) == ["ring_min1_packed_kernel<0,0,2,4,2>",
+                           "ring_min1_packed_kernel<0,1,2,4,2>", fast]
+    assert [op for _, op, _ in fns[fast]] == [
+        "LDC", "LDS", "FFMA", "IMAD", "VIMNMX", "BRA", "BRA", "I2FP", "EXIT",
+        "BRA"]
+    assert build.hottest_loop(fns[fast]) == ["LDS", "FFMA", "IMAD", "VIMNMX",
+                                             "BRA"]
+    lines, converting = build.packed_sass(_SASS)
+    assert converting == ["ring_min1_packed_kernel<0,1,2,4,2>"]
+    assert lines[2].startswith(f"{fast} (product, fast) 10 instructions, "
+                               "main loop 5 for 2 slots x 2 queries = 1.25 a "
+                               "pair, F2I 0")
+    assert "(difference, conversion)" in lines[0] and "F2I 1" in lines[0]
+
+
+def test_build_refuses_a_measurement_switch(monkeypatch, tmp_path):
+    """The measurement tools' VLOAM_*_PART switches cut a kernel's work:
+    build() refuses to make the wrappers' library with one (before looking
+    for nvcc), and phase 2 of chip_smoke.py finds one in a build log."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    flags = build.NVCC_FLAGS
+    for flag in ("-DVLOAM_RG_PART=2", "-DVLOAM_S1_PART=1",
+                 "-DVLOAM_K3_PART=3"):
+        monkeypatch.setattr(build, "NVCC_FLAGS", [*flags, flag])
+        with pytest.raises(RuntimeError, match="measurement switches"):
+            build.build()
+    log = "nvcc -O3 -DVLOAM_RG_VEC=2 -DVLOAM_RG_PART=0 -c x.cu\n"
+    assert build.measurement_defines(log.split()) == []
+    assert build.measurement_defines(
+        (log + "nvcc -DVLOAM_S1_PART=2 -c y.cu").split()) == [
+            "-DVLOAM_S1_PART=2"]
+    assert not list(tmp_path.iterdir())
+
+
 def test_kernel_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
     lib = tmp_path / "libvloam_kernels_0.so"
     lib.write_bytes(b"")

@@ -368,6 +368,132 @@ def test_fma_f32_rounds_once(rng):
     np.testing.assert_array_equal(got, np.asarray(want, np.float32))
 
 
+def _rz_sat_f32(x: Fraction) -> np.float32:
+    """x rounded toward zero to float32 and held to [0, 1], exactly: PTX's
+    fma.rz.sat.f32 rounding of an exact sum."""
+    if x <= 0:
+        return np.float32(0)
+    if x >= 1:
+        return np.float32(1)
+    f = np.float32(float(x))
+    while Fraction(float(f)) > x:
+        f = np.nextafter(f, np.float32(0))
+    while Fraction(float(np.nextafter(f, np.float32(1)))) <= x:
+        f = np.nextafter(f, np.float32(1))
+    return f
+
+
+@pytest.mark.parametrize("C", [65, 128, 512, 1 << 16, 1 << 29])
+def test_packed_fast_truncation_is_exact(rng, C):
+    """ring_min1_packed's fast path (kernels/csrc/ring_min1.cu, 7 or more
+    slot bits): x = fma.rz.sat(d, scale / 2^24, base), base = 1 - M / 2^24
+    and M = 2^min(23, 30 - bits), carries bits(base) + min(trunc(d * scale),
+    M), and the wrapping key bits(x) * 2^bits + (slot - bits(base) * 2^bits)
+    is (that count << bits) | slot, below 2^31. Exact rational arithmetic
+    at counts 0, 1, 2, the clip's, M and random ones, one ulp either side of
+    each, at the clip and far past it."""
+    bits, scale, clip = tra._quant(C)
+    M = 1 << min(23, 30 - bits)
+    assert bits >= 7 and clip * scale <= M
+    base_bits = 0x3F800000 - M
+    base = Fraction(float(np.array(base_bits, np.int32).view(np.float32)))
+    assert base == 1 - Fraction(M, 2**24) and base >= Fraction(1, 2)
+    k = Fraction(scale) / 2**24
+    key0 = -(base_bits << bits) & 0xFFFFFFFF
+    top = int(np.float32(clip) * np.float32(scale))
+    counts = [0, 1, 2, top - 1, top, top + 1, M - 1, M]
+    counts += [int(n) for n in rng.integers(0, top + 1, 40)]
+    ds = [np.float32(clip), np.float32(1e3), np.float32(3e12),
+          np.float32(1e-30)]
+    for n in counts:
+        d = np.float32(n) / np.float32(scale)  # exact: a power of two
+        ds += [d, np.nextafter(d, np.float32(0)),
+               np.nextafter(d, np.float32(np.inf))]
+    for d in ds:
+        x = _rz_sat_f32(Fraction(float(d)) * k + base)
+        want = min(int(Fraction(float(d)) * Fraction(scale)), M)
+        assert int(np.array(x).view(np.int32)) - base_bits == want, d
+        slot = int(rng.integers(0, min(C, 1 << 20)))
+        key = (int(np.array(x).view(np.int32)) * (1 << bits) + key0
+               + slot) & 0xFFFFFFFF
+        assert key < 2**31 and key == (want << bits) | slot, d
+
+
+def _raw_dist(q: torch.Tensor, slab_t: torch.Tensor, product: bool):
+    """Every (ring, query, slot) distance [S, Q, C] as the reference's
+    compiled code rounds it, the product form before its clamp at 0."""
+    qb = q.T[:, None, :, None]  # [3, 1, Q, 1]
+    cb = slab_t.permute(1, 0, 2)[:, :, None, :]  # [3, S, 1, C]
+    if not product:
+        return tra._fused_dist(qb, cb, False)
+
+    def norm(a, b):
+        return tra.fma_f32(a[2], b[2], tra.fma_f32(a[1], b[1], a[0] * b[0]))
+    return (norm(qb, qb) + norm(cb, cb)) - 2.0 * norm(qb, cb)
+
+
+_BOUNDARY_CASES = [c for c in kernel_cases.ring_packed_cases()
+                   if c.name.startswith(("packed_steps", "packed_negative",
+                                         "packed_ragged"))]
+
+
+@pytest.mark.parametrize("product", [True, False])
+@pytest.mark.parametrize("case", _BOUNDARY_CASES, ids=lambda c: c.name)
+def test_packed_boundary_cases(case, product):
+    """The packed forms' plain versions against the jitted reference, bit
+    for bit, on the cases of the fast truncation's boundaries; each case
+    reaches the boundary its name gives; and the kernel's fast-path rule
+    (counts capped at M, the minimum started at the clip's key at slot 0,
+    no clip a pair) gives the same outputs over the same distances."""
+    q, slab_t = (torch.from_numpy(a) for a in (case.queries, case.slab_t))
+    S, _, C = slab_t.shape
+    ref = jra.ring_min1_mxu if product else jra.ring_min1_packed
+    plain = tra.ring_min1_mxu_plain if product else tra.ring_min1_packed_plain
+    want = jax.jit(ref)(jnp.asarray(case.queries), jnp.asarray(case.slab_t))
+    got = plain(q, slab_t)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    bits, scale, clip = tra._quant(C)
+    top = int(np.float32(clip) * np.float32(scale))  # the clip's count
+    raw = _raw_dist(q, slab_t, product)
+    d = torch.clamp(raw, min=0.0)
+    if bits >= 7:
+        M = 1 << min(23, 30 - bits)
+        keys = (torch.clamp(torch.floor(d.double() * scale), max=M).long()
+                << bits) | torch.arange(C)
+        m = torch.clamp(keys.amin(-1), max=top << bits)
+        assert torch.equal(m & ((1 << bits) - 1), got[1].long())
+        assert torch.equal((m >> bits).float() / scale, got[0])
+
+    dmin = d.amin(-1).double()  # [S, Q]
+    if case.name.startswith("packed_steps"):
+        o = dmin[:, 0]  # the first query sits at the origin
+        ulp_up = torch.from_numpy(np.nextafter(
+            o.float().numpy(), np.float32(np.inf))).double()
+        for s in (0, 2):  # d * scale an integer below the clip's count
+            assert o[s] * scale == torch.floor(o[s] * scale) < top
+        for s in (1, 3):  # one ulp below an integer
+            assert o[s] * scale != torch.floor(o[s] * scale)
+            assert ulp_up[s] * scale == torch.floor(ulp_up[s] * scale)
+        assert o[4] == clip and o[5] < clip < o[6]
+        assert ulp_up[5] == clip and o[6] == float(np.nextafter(
+            np.float32(clip), np.float32(np.inf)))
+        if bits < 7:  # the conversion path: counts past the fast binade
+            assert o[7] * scale == 1 << 23 and top >= 1 << 23
+            assert int((got[0] * scale).max()) == top
+        else:  # the largest counts just under 2^23 (at 7 bits)
+            assert o[7] * scale == top - 1
+            assert int((got[0] * scale).max()) == top <= 1 << (30 - bits)
+            assert bits > 7 or top > (1 << 23) - 16
+    elif case.name == "packed_negative":
+        assert (got[0] == 0).sum() > len(case.queries) // 2
+        if product:  # below 0 before the clamp, among the ring minima
+            assert ((raw < 0) & (d == d.amin(-1, keepdim=True))).any()
+    else:  # counts that the kernel's blocks and steps do not divide
+        assert len(case.queries) % 64 and C % 16
+
+
 def test_slab_from_flat_matches_jax(rng):
     n, S, cap = 3000, 16, 128
     xyz = rng.uniform(-40, 40, (n, 3)).astype(np.float32)

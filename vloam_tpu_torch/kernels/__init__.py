@@ -145,9 +145,9 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("row_gather: table is not 16-byte aligned")
     if NB == 0 and N > 0:
         raise ValueError("row_gather: empty table")
-    if N >= 2**31:
-        raise ValueError(f"row_gather: {N} rows do not fit the kernel's "
-                         "32-bit row count")
+    if N * (W // 4) >= 2**31:
+        raise ValueError(f"row_gather: {N} rows of {W} floats do not fit "
+                         "the kernel's 32-bit count of 16-byte words")
     if table.device != idx.device:
         raise ValueError("row_gather: inputs on different devices")
     lib = build.load()

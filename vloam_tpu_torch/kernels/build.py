@@ -27,11 +27,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # -fmad=false: the ring reductions' distances (ring_min2.cu, ring_min1.cu;
-# the packed form's fused multiply-adds are explicit) must round like the plain PyTorch versions (separately rounded products and
-# sums) for their argmins to match exactly.
+# the packed form's fused multiply-adds are explicit) must round like the
+# plain PyTorch versions (separately rounded products and sums) for their
+# argmins to match exactly.
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
+
+# a measurement switch (VLOAM_S1_PART, VLOAM_RG_PART, VLOAM_K3_PART) set to
+# anything but 0
+_PART = re.compile(r"-DVLOAM_\w+_PART=(?!0$)")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's own prefix
 
@@ -82,9 +87,21 @@ def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
     return [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)]
 
 
+def measurement_defines(words) -> list[str]:
+    """The words (nvcc flags, or a build log split into words) that set a
+    measurement switch: a VLOAM_*_PART macro other than 0, which cuts a
+    kernel's work for the measurement tools (build_variants) and must never
+    reach the library the wrappers load."""
+    return [w for w in words if _PART.match(w)]
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has not been built yet;
     returns the library path. ptxas' report goes to a .log beside it."""
+    if parts := measurement_defines(NVCC_FLAGS):
+        raise RuntimeError(f"the kernels' library would be built with "
+                           f"measurement switches {parts}: those belong to "
+                           "build_variants only")
     lib = library_path()
     if lib.exists():
         return lib
@@ -135,13 +152,17 @@ _SMEM = re.compile(r"(\d+) bytes smem")
 def _kernel_name(mangled: str) -> str:
     """'ring_min2_kernel' or 'select_rings_kernel<10>' from ptxas' mangled
     entry name (its length-prefixed '..._kernel' part and, if it is a
-    template, its integer or bool argument: 'ring_min1_packed_kernel<1>')."""
+    template, its integer and bool arguments:
+    'ring_min1_packed_kernel<1,1,4,4,4>')."""
     end = mangled.find("_kernel") + len("_kernel")
     for n in range(len("_kernel"), end):  # the name's length prefix
         if mangled[:end - n].endswith(str(n)):
-            arg = re.match(r"IL[ib](\d+)E", mangled[end:])
+            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
             name = mangled[end - n:end]
-            return f"{name}<{arg.group(1)}>" if arg else name
+            if not args:
+                return name
+            values = re.findall(r"L[ib](\d+)E", args.group(1))
+            return f"{name}<{','.join(values)}>"
     return mangled
 
 
@@ -168,6 +189,76 @@ def parse_report(log: str) -> dict[str, dict[str, int]]:
             if sm := _SMEM.search(m.group(2)):
                 out[name]["smem"] = int(sm.group(1))
     return out
+
+
+_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9]*)(?:\.[A-Z0-9.]+)?\s*([^;]*);")
+
+
+def cuobjdump() -> str:
+    """cuobjdump beside the nvcc that builds the kernels."""
+    return str(Path(find_nvcc()).parent / "cuobjdump")
+
+
+def sass(so: str | Path) -> str:
+    """The machine code of a built library, as cuobjdump -sass prints it."""
+    return subprocess.run([cuobjdump(), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def parse_sass(text: str) -> dict[str, list[tuple[int, str, str]]]:
+    """Per kernel (named as resource_usage names them) its instructions in
+    order: (address, opcode without modifiers, operands)."""
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = _kernel_name(part.split(None, 1)[0])
+        out[name] = [(int(a, 16), op, args.strip())
+                     for a, op, args in _SASS_OP.findall(part)]
+    return out
+
+
+def hottest_loop(ins: list[tuple[int, str, str]]) -> list[str]:
+    """The opcodes of a kernel's main loop: of its innermost loops (a
+    backward branch's target to the branch, with no other backward branch
+    inside), the longest (an unrolled main loop)."""
+    loops = []
+    for addr, op, args in ins:
+        m = re.match(r"(0x[0-9a-f]+)", args)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            loops.append((int(m.group(1), 16), addr))
+    best: list[str] = []
+    for lo, hi in loops:
+        if any(lo <= a < hi for _, a in loops if a != hi):
+            continue  # holds another loop
+        body = [o for a, o, _ in ins if lo <= a <= hi]
+        if len(body) > len(best):
+            best = body
+    return best
+
+
+def packed_sass(text: str) -> tuple[list[str], list[str]]:
+    """ring_min1_packed_kernel's instantiations in machine code (cuobjdump
+    -sass text): per instantiation its instructions in all, in its main slot
+    loop and per (query, slot) pair there, and its F2I conversions. Returns
+    the lines and the instantiations of the fast path (second template
+    argument 1) that convert, which must be none."""
+    lines, converting = [], []
+    for name, ins in sorted(parse_sass(text).items()):
+        if not name.startswith("ring_min1_packed_kernel<"):
+            continue
+        product, fast, qpt, _, unroll = map(
+            int, name[name.index("<") + 1:-1].split(","))
+        ops = [op for _, op, _ in ins]
+        loop = hottest_loop(ins)
+        f2i = ops.count("F2I")
+        lines.append(f"{name} ({'product' if product else 'difference'}, "
+                     f"{'fast' if fast else 'conversion'}) {len(ops)} "
+                     f"instructions, main loop {len(loop)} for {unroll} "
+                     f"slots x {qpt} queries = "
+                     f"{len(loop) / (unroll * qpt):.2f} a pair, F2I {f2i}")
+        if fast and f2i:
+            converting.append(name)
+    return lines, converting
 
 
 def load() -> ctypes.CDLL:

@@ -87,23 +87,57 @@
 // and of "packed" (vloam_tpu/lidar/ring_assoc.py::ring_min1_mxu,
 // ring_min1_packed; XLA in the reference, no Pallas kernel): per ring and
 // query the smallest key (trunc(min(d, clip) * scale) << bits) | slot, one
-// int32, returned as (d dequantized, slot). The key carries its slot, so
-// the minimum is one integer minimum a pair, ties go to the lowest slot
-// without a rule, and the groups' minima merge in any order: no chunk
-// tracking and no resolve pass. It keeps ring_min1's staging and block
-// shape (float4 tiles, kQpt queries a thread, kSplit groups over a tile's
-// slots). d is either form, rounded as the reference's compiled CPU code
-// rounds it (XLA contracts each sum of products into fused multiply-adds)
-// and as ring_assoc's plain versions emulate it, so all three agree bit for
-// bit:
+// int32, returned as (d dequantized, slot). d is either form, rounded as the
+// reference's compiled CPU code rounds it (XLA contracts each sum of
+// products into fused multiply-adds) and as ring_assoc's plain versions
+// emulate it, so all three agree bit for bit:
 //   difference  fma(dz, dz, fma(dy, dy, dx * dx)), d = q - c
 //   product     max((|q|^2 + |c|^2) - 2 q.c, 0), |p|^2 = fma(z, z, fma(y, y,
 //               x * x)) and q.c = fma(qz, cz, fma(qy, cy, qx * cx)); |c|^2
-//               is computed once a slot while the tile is staged (its 4th
-//               float)
-// Issue-bound as ring_min1: ~11 instructions a pair in either form.
+//               is computed once a slot while the ring is staged (its 4th
+//               float); s - 2 q.c is one fma(-2, q.c, s), as 2 q.c is exact
+// What bounds it on Hopper: instruction issue. At the surf shape (1536
+// queries x 64 rings x 512 slots, 50.3 M pairs) every instruction a pair
+// costs 1.5 us on 132 SMs x 4 schedulers at 1.98 GHz; the operation bound
+// (67 TFLOP/s) counts only the arithmetic, about half of what a pair
+// issues. The first build issued ~13 a pair, among them a float-to-int
+// conversion (F2I, a quarter of the float32 rate: 12 us of conversions
+// alone at surf), the clip's minimum and the key's shift and OR. The design:
+// - The truncation on the float32 pipe. With scale a power of two and
+//   clip * scale <= M = 2^min(23, 30 - bits) (bits >= 7 at the reference's
+//   64 m^2 clip: C >= 65), x = fma.rz.sat(d, scale / 2^24, 1 - M / 2^24)
+//   lies in the binade [0.5, 1], whose unit is 2^-24: rounding toward zero
+//   drops exactly the fraction of d * scale, so bits(x) = bits(1 - M /
+//   2^24) + trunc(d * scale), and the saturation at 1.0 caps the count at
+//   M. The clip costs no instruction: a key at or past the clip is at least
+//   the clip's key at slot 0, (trunc(clip * scale) << bits), where the
+//   minimum starts, and a ring whose keys all lie there ends there, as the
+//   clipped reference does (its slot 0 then holds the clip's key).
+// - The key in one integer multiply-add: bits(x) * 2^bits + (slot -
+//   bits(1 - M / 2^24) * 2^bits), wrapping, is (trunc << bits) | slot
+//   (below 2^31, as M * 2^bits <= 2^30). Then one integer minimum. That is
+//   9 instructions a pair in either form (difference: 3 subtractions, a
+//   product, 2 fma, the truncating fma, the multiply-add, the minimum;
+//   product: a product, 2 fma for q.c, a sum, an fma, the max at 0, the
+//   truncating fma, the multiply-add, the minimum), and once a slot for kQ
+//   pairs a broadcast 16-byte load and the slot's constant. chip_smoke.py
+//   phase 2 counts them in the built machine code and fails on an F2I in
+//   the fast path.
+// - Below 7 slot bits the count passes 2^23 and leaves the binade: those
+//   rings (C <= 64) take the instantiation that keeps the conversion
+//   (kFast false), with the same minimum, tie and clip rules.
+// - Its own block shape: a block holds 32 x kQ queries of one ring, kW
+//   warps split the ring's slots, kU slots an unrolled step: 4 queries a
+//   thread, 4 warps, 8 slots. tools/profile_ring_variants.py --shapes times
+//   others; of 14 this one was the fastest or within 0.2 us of it at both
+//   engine shapes (PERF.md), so one shape serves every ring size.
+// - What was right stays: the key carries its slot, so ties go to the
+//   lowest slot, the warps' minima merge in any order and no resolve pass
+//   runs; the whole ring is staged once for C <= kTile; SENTINEL slots are
+//   visited (live slots need not be a prefix); the dequantizing epilogue.
 
-#include <climits>
+#include <cmath>
+#include <cstring>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -121,14 +155,25 @@
 #ifndef VLOAM_S1_CHUNK
 #define VLOAM_S1_CHUNK 4
 #endif
-// the part of ring_min1's work that runs, for the measurement: 0 all, 1 none
-// (launch only), 2 all but the chunk loop
+// the part of ring_min1's and ring_min1_packed's work that runs, for the
+// measurement: 0 all, 1 none (launch only), 2 all but the slot loop
 #ifndef VLOAM_S1_PART
 #define VLOAM_S1_PART 0
 #endif
 // ring_argmin2's shared memory for pass 1's segment minima, bytes a block
 #ifndef VLOAM_A2_STORE
 #define VLOAM_A2_STORE 32768
+#endif
+// ring_min1_packed's block shape: queries a thread, warps a block, slots an
+// unrolled step; settable for tools/profile_ring_variants.py --shapes
+#ifndef VLOAM_PK_QPT
+#define VLOAM_PK_QPT 4
+#endif
+#ifndef VLOAM_PK_WARPS
+#define VLOAM_PK_WARPS 4
+#endif
+#ifndef VLOAM_PK_UNROLL
+#define VLOAM_PK_UNROLL 8
 #endif
 
 namespace {
@@ -411,84 +456,159 @@ __device__ __forceinline__ float sq_norm(float x, float y, float z) {
   return __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x)));
 }
 
-template <bool kProduct>
-__global__ void __launch_bounds__(kMin1Threads)
+// ring_min1_packed's quantization (see the notes above). The fast path's
+// truncation takes k = scale / 2^24, base = 1 - M / 2^24 and the key's
+// constant key0 = -(bits(base) << bits); the conversion path takes scale
+// and clip. Both start the minimum at clip_key, the clip's key at slot 0.
+struct PackedQuant {
+  int bits;
+  unsigned pow2;  // 2^bits
+  int clip_key;
+  float inv_scale;
+  float k, base;  // fast path
+  unsigned key0;
+  float scale, clip;  // conversion path
+};
+
+// x = d * k + base rounded toward zero and saturated to [0, 1]: one FFMA
+__device__ __forceinline__ float fma_rz_sat(float d, float k, float base) {
+  float x;
+  asm("fma.rz.sat.f32 %0, %1, %2, %3;" : "=f"(x) : "f"(d), "f"(k), "f"(base));
+  return x;
+}
+
+// The packed key of one (query, slot) pair. kFast: bits(x) * 2^bits +
+// (slot - bits(base) * 2^bits), wrapping (below 2^31 by construction);
+// else (trunc(min(d, clip) * scale) << bits) | slot with the conversion.
+template <bool kProduct, bool kFast>
+__device__ __forceinline__ int packed_key(float qx, float qy, float qz,
+                                          float qq, const float4& p,
+                                          unsigned slot_key, int col,
+                                          const PackedQuant& pq) {
+  float d;
+  if (kProduct) {
+    const float qc =
+        __fmaf_rn(qz, p.z, __fmaf_rn(qy, p.y, __fmul_rn(qx, p.x)));
+    // s - 2 q.c in one rounding: 2 q.c is exact
+    d = fmaxf(__fmaf_rn(-2.f, qc, __fadd_rn(qq, p.w)), 0.f);
+  } else {
+    d = sq_norm(__fsub_rn(qx, p.x), __fsub_rn(qy, p.y), __fsub_rn(qz, p.z));
+  }
+  if (kFast)
+    return static_cast<int>(
+        static_cast<unsigned>(__float_as_int(fma_rz_sat(d, pq.k, pq.base))) *
+            pq.pow2 +
+        slot_key);
+  return (__float2int_rz(__fmul_rn(fminf(d, pq.clip), pq.scale)) << pq.bits) |
+         col;
+}
+
+// A block holds 32 * kQ queries of one ring (kQ a thread, strided by 32 so
+// stores coalesce); its kW warps split each staged tile's slots, kU slots
+// an unrolled step, and merge their minima through shared memory.
+template <bool kProduct, bool kFast, int kQ, int kW, int kU>
+__global__ void __launch_bounds__(kW * 32)
 ring_min1_packed_kernel(const float* __restrict__ queries,  // [Q, 3]
                         const float* __restrict__ slab_t,   // [S, 3, C]
                         float* __restrict__ dout, int* __restrict__ aout,
-                        int Q, int C, int bits, float scale, float inv_scale,
-                        float clip) {
+                        int Q, int C, PackedQuant pq) {
+  constexpr int kThreads = kW * 32;
   __shared__ float4 tile[kTile];  // {x, y, z, |c|^2 or 0}
-  __shared__ int s_k[kSplit][kQpt][kGroup];
+  __shared__ int s_k[kW][kQ][32];
   const int s = blockIdx.x;
-  const int grp = threadIdx.x / kGroup;
-  const int tid = threadIdx.x % kGroup;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   const float* ring = slab_t + static_cast<size_t>(s) * 3 * C;
-  const int q0 = blockIdx.y * (kGroup * kQpt) + tid;
+  const int q0 = blockIdx.y * (32 * kQ) + lane;
+  if (kPart == 1) return;
 
-  float qx[kQpt], qy[kQpt], qz[kQpt], qq[kQpt];
-  int best[kQpt];
+  float qx[kQ], qy[kQ], qz[kQ], qq[kQ];
+  int best[kQ];
 #pragma unroll
-  for (int j = 0; j < kQpt; ++j) {
+  for (int j = 0; j < kQ; ++j) {
     // queries past Q repeat the last one and are not stored
-    const int q = min(q0 + j * kGroup, Q - 1);
+    const int q = min(q0 + j * 32, Q - 1);
     qx[j] = queries[3 * q];
     qy[j] = queries[3 * q + 1];
     qz[j] = queries[3 * q + 2];
     qq[j] = kProduct ? sq_norm(qx[j], qy[j], qz[j]) : 0.f;
-    best[j] = INT_MAX;
+    best[j] = pq.clip_key;
   }
 
   for (int t0 = 0; t0 < C; t0 += kTile) {
     const int n = min(kTile, C - t0);
     __syncthreads();  // the previous tile is done with
-    for (int i = threadIdx.x; i < n; i += kMin1Threads) {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
       const float x = ring[t0 + i], y = ring[C + t0 + i],
                   z = ring[2 * C + t0 + i];
       tile[i] = make_float4(x, y, z, kProduct ? sq_norm(x, y, z) : 0.f);
     }
     __syncthreads();
-    // group g takes the g-th share of the tile's slots
-    const int per = (n + kSplit - 1) / kSplit;
-    const int end = min(n, (grp + 1) * per);
-    for (int i = grp * per; i < end; ++i) {
-      const float4 p = tile[i];  // one broadcast load for kQpt queries
-      const int col = t0 + i;
+    // warp w takes the w-th share of the tile's slots, in whole steps
+    const int per = ((n + kW - 1) / kW + kU - 1) / kU * kU;
+    const int end = kPart == 2 ? 0 : min(n, (warp + 1) * per);
+    const unsigned key_t0 = pq.key0 + t0;
+    int i = warp * per;
+#pragma unroll 1
+    for (; i + kU <= end; i += kU) {
 #pragma unroll
-      for (int j = 0; j < kQpt; ++j) {
-        float d;
-        if (kProduct) {
-          const float qc = __fmaf_rn(
-              qz[j], p.z, __fmaf_rn(qy[j], p.y, __fmul_rn(qx[j], p.x)));
-          d = fmaxf(__fsub_rn(__fadd_rn(qq[j], p.w), __fmul_rn(2.f, qc)),
-                    0.f);
-        } else {
-          const float dx = __fsub_rn(qx[j], p.x);
-          const float dy = __fsub_rn(qy[j], p.y);
-          const float dz = __fsub_rn(qz[j], p.z);
-          d = sq_norm(dx, dy, dz);
-        }
-        const int key =
-            (__float2int_rz(__fmul_rn(fminf(d, clip), scale)) << bits) | col;
-        best[j] = min(best[j], key);
+      for (int u = 0; u < kU; ++u) {
+        const float4 p = tile[i + u];  // one broadcast load for kQ pairs
+#pragma unroll
+        for (int j = 0; j < kQ; ++j)
+          best[j] = min(best[j], packed_key<kProduct, kFast>(
+                                     qx[j], qy[j], qz[j], qq[j], p,
+                                     key_t0 + i + u, t0 + i + u, pq));
       }
+    }
+#pragma unroll 1
+    for (; i < end; ++i) {  // the share's ragged end
+      const float4 p = tile[i];
+#pragma unroll
+      for (int j = 0; j < kQ; ++j)
+        best[j] = min(best[j], packed_key<kProduct, kFast>(
+                                   qx[j], qy[j], qz[j], qq[j], p, key_t0 + i,
+                                   t0 + i, pq));
     }
   }
 
 #pragma unroll
-  for (int j = 0; j < kQpt; ++j) s_k[grp][j][tid] = best[j];
+  for (int j = 0; j < kQ; ++j) s_k[warp][j][lane] = best[j];
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < kQpt; ++j) {
-    const int q = q0 + j * kGroup;
-    if (j % kSplit != grp || q >= Q) continue;
-    int m = s_k[0][j][tid];
+  for (int j = 0; j < kQ; ++j) {
+    const int q = q0 + j * 32;
+    if (j % kW != warp || q >= Q) continue;
+    int m = s_k[0][j][lane];
 #pragma unroll
-    for (int g = 1; g < kSplit; ++g) m = min(m, s_k[g][j][tid]);
+    for (int w = 1; w < kW; ++w) m = min(m, s_k[w][j][lane]);
     const size_t o = static_cast<size_t>(s) * Q + q;
-    dout[o] = __fmul_rn(__int2float_rn(m >> bits), inv_scale);
-    aout[o] = m & ((1 << bits) - 1);
+    dout[o] = __fmul_rn(__int2float_rn(m >> pq.bits), pq.inv_scale);
+    aout[o] = m & static_cast<int>(pq.pow2 - 1);
   }
+}
+
+template <bool kProduct, bool kFast, int kQ, int kW, int kU>
+cudaError_t launch_packed(const float* queries, const float* slab_t,
+                          float* dout, int* aout, int Q, int S, int C,
+                          const PackedQuant& pq, cudaStream_t st) {
+  const dim3 grid(S, (Q + 32 * kQ - 1) / (32 * kQ));
+  ring_min1_packed_kernel<kProduct, kFast, kQ, kW, kU>
+      <<<grid, kW * 32, 0, st>>>(queries, slab_t, dout, aout, Q, C, pq);
+  return cudaGetLastError();
+}
+
+// Both forms, fast path or conversion, at the block shape
+template <bool kProduct>
+cudaError_t launch_packed_form(bool fast, const float* queries,
+                               const float* slab_t, float* dout, int* aout,
+                               int Q, int S, int C, const PackedQuant& pq,
+                               cudaStream_t st) {
+  constexpr int kQ = VLOAM_PK_QPT, kW = VLOAM_PK_WARPS, kU = VLOAM_PK_UNROLL;
+  return fast ? launch_packed<kProduct, true, kQ, kW, kU>(
+                    queries, slab_t, dout, aout, Q, S, C, pq, st)
+              : launch_packed<kProduct, false, kQ, kW, kU>(
+                    queries, slab_t, dout, aout, Q, S, C, pq, st);
 }
 
 template <typename Kernel>
@@ -540,15 +660,30 @@ extern "C" int vloam_ring_min1_packed(const float* queries,
                                       int* aout, int Q, int S, int C,
                                       int product, int bits, float scale,
                                       float clip, void* stream) {
-  const int per_block = kGroup * kQpt;
-  const dim3 grid(S, (Q + per_block - 1) / per_block);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float inv_scale = 1.f / scale;  // exact: scale is a power of two
-  if (product)
-    ring_min1_packed_kernel<true><<<grid, kMin1Threads, 0, st>>>(
-        queries, slab_t, dout, aout, Q, C, bits, scale, inv_scale, clip);
-  else
-    ring_min1_packed_kernel<false><<<grid, kMin1Threads, 0, st>>>(
-        queries, slab_t, dout, aout, Q, C, bits, scale, inv_scale, clip);
-  return static_cast<int>(cudaGetLastError());
+  PackedQuant pq{};
+  pq.bits = bits;
+  pq.pow2 = 1u << bits;
+  pq.scale = scale;
+  pq.clip = clip;
+  pq.inv_scale = 1.f / scale;  // exact: scale is a power of two
+  // the clip's count, truncated as the kernel truncates (exact product)
+  pq.clip_key = static_cast<int>(clip * scale) << bits;
+  // the fast path: counts up to M in one binade of unit 1 (see the notes)
+  int e;
+  const bool pow2_scale = std::frexp(scale, &e) == 0.5f;
+  const unsigned M = 1u << min(23, 30 - bits);
+  const bool fast = pow2_scale && clip >= 0.f &&
+                    static_cast<double>(clip) * scale <= M;
+  if (fast) {
+    pq.k = std::ldexp(scale, -24);
+    const unsigned base_bits = 0x3F800000u - M;  // 1 - M / 2^24
+    std::memcpy(&pq.base, &base_bits, sizeof(float));
+    pq.key0 = 0u - (base_bits << bits);
+  }
+  return static_cast<int>(
+      product ? launch_packed_form<true>(fast, queries, slab_t, dout, aout, Q,
+                                         S, C, pq, st)
+              : launch_packed_form<false>(fast, queries, slab_t, dout, aout,
+                                          Q, S, C, pq, st));
 }

@@ -354,7 +354,104 @@ def ring_packed_cases(seed: int = 16836) -> list[Min2Case]:
         slab = rng.uniform(0, 4, (_S, C, 3)).astype(np.float32)
         slab[0, C // 2:] = SENTINEL
         cases.append(Min2Case(f"packed_dense_{Q}x{C}", q, slab))
+    for C in (64, 65, 128, 512):
+        cases.append(_packed_steps(rng, C))
+    cases.append(_packed_negative(rng))
+    # counts that ring_min1_packed's blocks (32 x 2 or 32 x 4 queries), warp
+    # shares and unrolled steps do not divide, one over three tiles
+    for Q, C in ((97, 67), (161, 509), (45, 1027)):
+        q = rng.uniform(-3, 3, (Q, 3)).astype(np.float32)
+        slab = rng.uniform(-4, 4, (_S, C, 3)).astype(np.float32)
+        slab[1, ::3] = SENTINEL
+        cases.append(Min2Case(f"packed_ragged_{Q}x{C}", q, slab))
     return cases
+
+
+def _fma32(a, b, c):
+    """a * b + c rounded once to float32 (a, b, c float32), or None where
+    the float64 sum lies on a float32 rounding midpoint (double rounding
+    could bite there)."""
+    s = np.float64(a) * np.float64(b) + np.float64(c)
+    if (int(np.array(s).view(np.int64)) & 0x1FFFFFFF) == 0x10000000:
+        return None
+    return np.float32(s)
+
+
+def _point_at(d: np.float32, rng) -> tuple[np.float32, np.float32]:
+    """(x, y) such that the point (x, y, 0) lies at squared distance d from
+    the origin exactly as both packed forms round it there: fma(y, y, x*x)
+    (the difference form's dz and the product form's |q|^2 and q.c are 0)."""
+    for _ in range(1000):
+        x = np.float32(np.sqrt(d) * rng.uniform(0.5, 0.99))
+        a = x * x
+        y = np.float32(np.sqrt(np.float64(d) - np.float64(a)))
+        for _ in range(4):
+            for cand in (y, np.nextafter(y, np.float32(np.inf)),
+                         np.nextafter(y, np.float32(0))):
+                if _fma32(cand, cand, a) == d:
+                    return x, cand
+            y = np.nextafter(y, np.float32(np.inf))
+    raise ValueError(f"no point at squared distance {d}")
+
+
+def _packed_steps(rng, C: int) -> Min2Case:
+    """The fast truncation's boundaries, one ring each for the queries at
+    the origin: d * scale exactly an integer n and one ulp below n + 1 (for
+    two random n), d at the clip, one ulp below and one above it, and (ring
+    7) the count just under the clip's (2^23 - 10 at C = 65 and 128) or, at
+    C = 64 (6 slot bits: the conversion path), d * scale = 2^23, which the
+    fast path's binade cannot hold (the clip's count is 2^24 - 17 there).
+    The boundary point sits at slot 0, C - 1, C / 2 or 1; the ring's other
+    slots lie farther from the origin, a fifth of them SENTINEL. Half the
+    queries are at the origin, the rest near it."""
+    bits = max(1, (C - 1).bit_length())
+    scale = np.float32(2.0 ** (24 - bits))  # lidar.ring_assoc._quant's
+    clip = np.float32(64.0 * 0.999999)
+    top = int(clip * scale)  # the clip's count
+
+    def at_count(n):
+        return np.float32(n) / scale  # exact: scale is a power of two
+
+    inf, zero = np.float32(np.inf), np.float32(0)
+    # counts below 2^22, where d has units finer than a count
+    n1, n2 = (int(v) for v in rng.integers(1, min(top, 1 << 22), 2))
+    targets = [at_count(n1), np.nextafter(at_count(n1 + 1), zero),
+               at_count(n2), np.nextafter(at_count(n2 + 1), zero),
+               clip, np.nextafter(clip, zero), np.nextafter(clip, inf),
+               at_count(1 << 23) if bits < 7 else at_count(top - 1)]
+    q = np.zeros((64, 3), np.float32)
+    q[32:] = rng.uniform(-3, 3, (32, 3))
+    slab = np.full((_S, C, 3), SENTINEL, np.float32)
+    for s, d in enumerate(targets):
+        r = float(np.sqrt(d))
+        far = rng.normal(0, 1, (C, 3))
+        far *= (r + rng.uniform(0.5, 6, (C, 1))) / np.linalg.norm(
+            far, axis=1, keepdims=True)
+        slab[s] = far.astype(np.float32)
+        slab[s, rng.random(C) < 0.2] = SENTINEL
+        x, y = _point_at(d, rng)
+        slab[s, (0, C - 1, C // 2, 1)[s % 4]] = [x, y, 0.0]
+    return Min2Case(f"packed_steps_{C}", q, slab)
+
+
+def _packed_negative(rng) -> Min2Case:
+    """Candidates one ulp from their query in each coordinate, at 20-60 m:
+    the product form's (|q|^2 + |c|^2) - 2 q.c comes out below 0 for some
+    (cancellation) and is held at 0, so equal keys tie on the lower slot."""
+    C = 128
+    q = rng.uniform(20, 60, (96, 3)).astype(np.float32)
+    q *= rng.choice([-1, 1], q.shape).astype(np.float32)
+    slab = rng.uniform(-60, 60, (_S, C, 3)).astype(np.float32)
+    inf = np.float32(np.inf)
+    for i in range(len(q)):
+        s = i % _S
+        for _ in range(3):  # a few near twins, anywhere in the ring
+            step = rng.choice([-1, 0, 1], 3)
+            twin = np.where(step > 0, np.nextafter(q[i], inf),
+                            np.where(step < 0, np.nextafter(q[i], -inf),
+                                     q[i]))
+            slab[s, int(rng.integers(0, C))] = twin
+    return Min2Case("packed_negative", q, slab)
 
 
 def _probe_table(rng, rows: int, cap: int, empty: float) -> np.ndarray:

@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
-import subprocess
 import tempfile
 from pathlib import Path
 
@@ -101,22 +99,19 @@ def check(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
-_OPCODE = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
 _SHOWN = ("LDG", "FADD", "BRA", "SHFL", "STG", "MUFU", "CALL")
 
 
 def sass_summary(so: str, match: str) -> str:
     """Counts of global loads, float adds, branches, shuffles, stores,
     special-function and call instructions in the machine code of the
-    kernel whose mangled name contains `match`, and its first 48 of them in
-    order, runs collapsed (LDG x18 FADD x17 ...)."""
-    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", so], capture_output=True,
-                          text=True, check=True).stdout
-    for fn in sass.split("Function : ")[1:]:
-        if match not in fn.splitlines()[0]:
+    kernel whose name (as kernels.build.parse_sass gives it) contains
+    `match`, and its first 48 of them in order, runs collapsed (LDG x18
+    FADD x17 ...)."""
+    for name, ins in build.parse_sass(build.sass(so)).items():
+        if match not in name:
             continue
-        ops = [o for o in _OPCODE.findall(fn) if o in _SHOWN]
+        ops = [op for _, op, _ in ins if op in _SHOWN]
         runs = []
         for o in ops[:48]:
             if runs and runs[-1][0] == o:
@@ -144,7 +139,7 @@ def run(parent: str | None = None, runs: int = 20) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build.build_variants(SOURCE, [d for _, d in builds], tmp)
         print("sass of the tree's p = 24 kernel: "
-              + sass_summary(libs[0][0], "zncc_describe_kernelILi24E"),
+              + sass_summary(libs[0][0], "zncc_describe_kernel<24>"),
               flush=True)
         if parent:
             src = (Path(parent) / "vloam_tpu_torch" / "kernels" / "csrc"
@@ -152,7 +147,7 @@ def run(parent: str | None = None, runs: int = 20) -> dict:
             builds.append(("parent's kernel", {}))
             libs += build.build_variants(src, [{}], tmp)
             print("sass of the parent's kernel: "
-                  + sass_summary(libs[-1][0], "zncc_describe_kernel"),
+                  + sass_summary(libs[-1][0], "zncc_describe_kernel<24>"),
                   flush=True)
         for (label, d), (so, log) in zip(builds, libs):
             usage = ", ".join(
