@@ -11,9 +11,11 @@ Phases (one line each; any failure ends the run with a nonzero exit):
   2. build: compile the hand-written kernels from kernels/csrc with nvcc;
      ptxas' registers, spills and shared memory of every kernel (K1, K2,
      K3, ring_min1, ring_argmin2, grid_probe, ring_min1_packed in each
-     instantiation, row_gather); none may spill. The machine code of
-     ring_min1_packed (cuobjdump -sass): instructions a (query, slot) pair
-     in each instantiation's main loop; no F2I in the fast path's
+     instantiation, row_gather, masked_knn's slice and merge kernels); none
+     may spill. The machine code of ring_min1_packed (cuobjdump -sass):
+     instructions a (query, slot) pair in each instantiation's main loop; no
+     F2I in the fast path's. masked_knn's slice kernel: instructions a pair
+     in its main loop (the hot path), per k
   frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
      1242 x 375 camera images, and three more 20-frame polar drives for the
      batch engine's other streams, rendered in worker processes
@@ -146,15 +148,19 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         mesh_window_rows=4096) over phase 5's drive: LO rows within 1e-5 of
         phase 5's, MO within 0.01 m of them and < 0.15 m from ground truth,
         peak active map rows within the window, 0 host syncs in the timed
-        frames, K1 / K2 / ring_min1 / row_gather launched and grid_probe not;
-        frames/s, launches and device time a frame (torch.profiler); the
-        MO difference from phase 5 frame by frame
+        frames, K1 / ring_min1_packed / row_gather / masked_knn launched and
+        grid_probe not, masked_knn 4 times a frame (2 rounds x 2 grids) in
+        the timed frames; frames/s, launches and device time a frame
+        (torch.profiler); the MO difference from phase 5 frame by frame
      1. the windows of M2's final map (_window_block: 4096 rows gathered by
         row_gather from each grid's [2^17, W] block) bit-identical to the
-        plain gather's on the CPU; lidar/knn.masked_knn at that engine's
-        shapes (the last frame's 2048 corner and 6144 surf stack points
-        against those windows of 4096 x 32 and 4096 x 16 slots): indices
-        identical card vs CPU, device time a call, its launches and bound
+        plain gather's on the CPU; masked_knn (kernels/csrc/knn.cu) at that
+        engine's shapes (the last frame's 2048 corner and 6144 surf stack
+        points against those windows of 4096 x 32 and 4096 x 16 slots):
+        indices and distance bits identical to masked_knn_plain on the card,
+        indices identical to the CPU's; the kernel's device time a call, the
+        plain version's, launches a call, the bound and the issue floor at
+        phase 2's instructions a pair
      3. the first 16 frames at 2 gloo ranks sharing the card (processes
         started by parallel/launch.py; the ring hop through host memory):
         MO within 0.01 m of M2, host syncs printed; with 2 or more cards
@@ -176,7 +182,8 @@ select_rings, ring_min1_packed (per stream: the single engine's shapes),
 grid_probe (the lockstep frame's probe of both grids) and row_gather (the
 flat surf insert), the association forms (phase 4b) for ring_min2 and
 ring_min1, the combined engine (phase 8) for zncc_describe, the
-ring-variants entry point (phase 12) for ring_argmin2.
+ring-variants entry point (phase 12) for ring_argmin2, the mesh engine (M2)
+for masked_knn (its times and bound at M1's corner window).
 
 Kernel times are device times (vloam_tpu_torch.tools.timing.device_ms: CUDA
 events around 20 calls queued behind a blocker, so the ~30 us host call of a
@@ -306,7 +313,9 @@ def device_phase() -> str:
     return card
 
 
-def build_phase() -> None:
+def build_phase() -> dict:
+    """Returns masked_knn's slice kernel's main-loop instructions a pair, by
+    k."""
     from vloam_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -319,7 +328,8 @@ def build_phase() -> None:
     redesigned = {"select_rings_kernel", "ring_min2_kernel",
                   "zncc_describe_kernel", "ring_min1_kernel",
                   "ring_argmin2_kernel", "grid_probe_kernel",
-                  "ring_min1_packed_kernel", "row_gather_kernel"}
+                  "ring_min1_packed_kernel", "row_gather_kernel",
+                  "knn_slice_kernel", "knn_merge_kernel"}
     usage = {k: v for k, v in build.resource_usage().items()
              if k.split("<")[0] in redesigned}
     if {k.split("<")[0] for k in usage} != redesigned:
@@ -332,13 +342,20 @@ def build_phase() -> None:
               for name, u in sorted(usage.items())), flush=True)
     if any(u["spill_stores"] or u["spill_loads"] for u in usage.values()):
         fail("a kernel spills registers")
-    lines, converting = build.packed_sass(build.sass(lib))
+    text = build.sass(lib)
+    lines, converting = build.packed_sass(text)
     print("[2 sass] ring_min1_packed: " + "; ".join(lines), flush=True)
+    knn_lines, knn_per_pair = build.knn_sass(text)
+    print("[2 sass] masked_knn: " + "; ".join(knn_lines), flush=True)
+    if sorted(knn_per_pair) != list(range(1, 9)):
+        fail(f"masked_knn: slice kernels for k = {sorted(knn_per_pair)}, "
+             "want 1 .. 8")
     if converting:
         fail(f"ring_min1_packed: F2I in the fast path of {converting}")
     if sum(", fast)" in line for line in lines) < 2:
         fail("ring_min1_packed: the fast path's instantiations are missing "
              "from the machine code")
+    return knn_per_pair
 
 
 class Calib:
@@ -677,7 +694,7 @@ def lidar_launches(n: int, **more) -> dict:
     2 inserts."""
     return {"select_rings": n, "ring_min2": 0, "ring_min1": 0,
             "ring_min1_packed": 4 * n, "row_gather": 2 * n, "grid_probe": n,
-            "zncc_describe": 0, "ring_argmin2": 0, **more}
+            "zncc_describe": 0, "ring_argmin2": 0, "masked_knn": 0, **more}
 
 
 def e2e_phase(cfg, frames, poses):
@@ -2171,8 +2188,10 @@ MESH_TOL = {"LO": 1e-5, "MO": 1e-2}
 def mesh_launches(n: int, **more) -> dict:
     """Launches of n frames of a mesh engine: scan registration and LO as
     the single engine's; the mesh mapping chunk probes no grid (grid_probe
-    0) and gathers rows twice for the windows and twice for the inserts."""
-    return lidar_launches(n, grid_probe=0, row_gather=4 * n, **more)
+    0), gathers rows twice for the windows and twice for the inserts, and
+    sweeps each window once in each of its 2 rounds (masked_knn)."""
+    return lidar_launches(n, grid_probe=0, row_gather=4 * n,
+                          masked_knn=4 * n, **more)
 
 
 def _mo_gaps(rows, ref_rows) -> np.ndarray:
@@ -2203,11 +2222,13 @@ def mesh_engine_phase(cfg, frames, poses, outs5, mesh):
     for k in range(CHUNK):
         eng.push_polar(frames[k])
     torch.cuda.synchronize()
+    knn0 = kernels.LAUNCHES["masked_knn"]
     t0 = time.perf_counter()
     host, syncs = _sync_free(lambda k: eng.push_polar(frames[k]),
                              range(CHUNK, N_FRAMES))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    knn_timed = kernels.LAUNCHES["masked_knn"] - knn0
     clk = clocks()
     outs = eng.finish()
     launches = dict(kernels.LAUNCHES)
@@ -2229,7 +2250,8 @@ def mesh_engine_phase(cfg, frames, poses, outs5, mesh):
           f"mesh_window_rows {MESH_WINDOW}) over phase 5's {N_FRAMES} frames: "
           f"{n / dt:.2f} frames/s over frames {CHUNK}-{N_FRAMES - 1} "
           f"({dt * 1e3 / n:.2f} ms/frame, host enqueue "
-          f"{host * 1e3 / n:.2f} ms/frame); launches {launches}; "
+          f"{host * 1e3 / n:.2f} ms/frame); launches {launches}; masked_knn "
+          f"{knn_timed / n:.2f} a frame in the timed frames; "
           f"{prof['launches']:.0f} kernel launches and "
           f"{prof['device_ms']:.2f} ms device time a frame (torch.profiler "
           f"over frames {PROFILE_FRAMES}-{2 * PROFILE_FRAMES - 1}, wall "
@@ -2243,6 +2265,9 @@ def mesh_engine_phase(cfg, frames, poses, outs5, mesh):
     want = mesh_launches(N_FRAMES)
     if launches != want:
         fail(f"mesh kernel launch counts {launches}, want {want}")
+    if knn_timed != 4 * n:
+        fail(f"masked_knn launched {knn_timed} times in {n} timed frames, "
+             f"want {4 * n}")
     if syncs:
         fail(f"the mesh frame loop synchronized with the device: {syncs[:3]}")
     if not (lo <= MESH_TOL["LO"] and mo < MESH_TOL["MO"]):
@@ -2251,27 +2276,38 @@ def mesh_engine_phase(cfg, frames, poses, outs5, mesh):
         fail(f"mesh MO error {err} m >= 0.15 m")
     if not 0 < active <= cap:
         fail(f"peak active map rows {active} outside the window {cap}")
-    return outs, eng
+    return outs, eng, launches
 
 
-def mesh_knn_phase(cfg, eng, frame, mo_row) -> None:
+def mesh_knn_phase(cfg, eng, frame, mo_row, per_pair) -> dict:
     """M1: the windows of M2's final map at the last frame's MO position
     (_window_block: 4096 rows of 96 / 48 floats gathered from [2^17, W] by
     row_gather) against the plain gather on the CPU, bit for bit; then
-    lidar/knn.masked_knn at the mesh engine's shapes, the last frame's
-    stacks against those windows: 2048 corner queries x 4096*32 slots, 6144
-    surf x 4096*16. Card against CPU: indices identical; device time a
-    call, its launches and bound."""
+    masked_knn (kernels/csrc/knn.cu) at the mesh engine's shapes, the last
+    frame's stacks against those windows: 2048 corner queries x 4096*32
+    slots, 6144 surf x 4096*16. Kernel against masked_knn_plain on the card:
+    indices and distance bits identical; against the CPU: indices identical;
+    device time a call beside the plain version's, launches a call, the
+    bound and the issue floor at per_pair (phase 2) instructions a pair.
+    Returns the kernels line's row at the corner window."""
     from torch.profiler import ProfilerActivity, profile
 
+    from vloam_tpu_torch import kernels
     from vloam_tpu_torch.data.synthetic import hdl64_elevations
     from vloam_tpu_torch.geometry import so3
-    from vloam_tpu_torch.lidar.knn import masked_knn
+    from vloam_tpu_torch.lidar.knn import masked_knn, masked_knn_plain
     from vloam_tpu_torch.lidar.scan_registration import (polar_directions,
                                                          register_scan_polar)
     from vloam_tpu_torch.lidar.voxel import voxel_downsample
     from vloam_tpu_torch.parallel.mesh_fused import _window_block
-    from vloam_tpu_torch.tools.timing import device_ms, knn_bound
+    from vloam_tpu_torch.tools.timing import (device_ms, knn_bound,
+                                              knn_issue_floor)
+
+    def device_launches(fn) -> int:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        return sum(e.count for e in prof.key_averages() if e.key.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel")))
 
     m = cfg.mapping
     elev = torch.tensor(np.radians(hdl64_elevations(64)),
@@ -2282,7 +2318,7 @@ def mesh_knn_phase(cfg, eng, frame, mo_row) -> None:
     q = torch.tensor(mo_row[14:18], device="cuda")
     t = torch.tensor(mo_row[18:21], device="cuda")
     cube = eng.state[1].cube
-    lines = []
+    lines, row = [], None
     for name, cloud, res, cap_q, grid in (
             ("corner", feats.less_sharp, m.line_resolution,
              m.corner_stack_cap, cube.corner),
@@ -2299,34 +2335,60 @@ def mesh_knn_phase(cfg, eng, frame, mo_row) -> None:
                     and torch.equal(mask.cpu(), mask_c)
                     and int(n_act) == int(n_act_c))
         Q, C = qw.shape[0], pts.shape[0]
+        n0 = kernels.LAUNCHES["masked_knn"]
         d, i = masked_knn(qw, pts, mask)
-        d_c, i_c = masked_knn(qw.cpu(), pts.cpu(), mask.cpu())
+        counted = kernels.LAUNCHES["masked_knn"] - n0
+        d_p, i_p = masked_knn_plain(qw, pts, mask)
+        same_plain = (torch.equal(i, i_p) and torch.equal(
+            d.view(torch.int32), d_p.view(torch.int32)))
+        err = float((d - d_p).abs().nan_to_num(0.0).max())
+        d_c, i_c = masked_knn_plain(qw.cpu(), pts.cpu(), mask.cpu())
         same = torch.equal(i.cpu(), i_c)
         fin = torch.isfinite(d_c)
         diff = float((d.cpu() - d_c)[fin].abs().max()) if fin.any() else 0.0
-        ms = device_ms(lambda: masked_knn(qw, pts, mask), runs=10, cold=False)
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            masked_knn(qw, pts, mask)
-        launches = sum(e.count for e in prof.key_averages() if e.key.startswith(
-            ("cudaLaunchKernel", "cuLaunchKernel")))
-        bound, by = knn_bound(Q, C, 5)
-        lines.append(f"{name} window {MESH_WINDOW} x {grid.pts.shape[1]} "
-                     f"of [{grid.pts.shape[0]}, {grid.pts.shape[1]}] "
-                     f"({int(n_act)} active rows): points, mask and active "
-                     "rows " + ("bit-identical" if win_same else "DIFFER")
-                     + " card vs CPU gather; "
-                     f"{Q} x {C} ({int(mask.sum())} live): indices "
-                     + ("identical" if same else "DIFFER")
-                     + f" card vs CPU, max |d_sq| diff {diff:.3g} m^2; "
-                     f"{ms:.3f} ms a call on the card, {launches} kernel "
-                     f"launches a call; bound {bound:.4f} ms ({by})")
+        ms = device_ms(lambda: masked_knn(qw, pts, mask), runs=20,
+                       cold=False)
+        plain_ms = device_ms(lambda: masked_knn_plain(qw, pts, mask), runs=5,
+                             cold=False)
+        launches = device_launches(lambda: masked_knn(qw, pts, mask))
+        plain_launches = device_launches(
+            lambda: masked_knn_plain(qw, pts, mask))
+        bound = knn_bound(Q, C, 5)
+        floor = knn_issue_floor(Q, C, per_pair[5])
+        lines.append(
+            f"{name} window {MESH_WINDOW} x {grid.pts.shape[1]} of "
+            f"[{grid.pts.shape[0]}, {grid.pts.shape[1]}] ({int(n_act)} "
+            "active rows): points, mask and active rows "
+            + ("bit-identical" if win_same else "DIFFER")
+            + f" card vs CPU gather; {Q} x {C} ({int(mask.sum())} live): "
+            "kernel vs masked_knn_plain on the card: indices and distance "
+            "bits " + ("identical" if same_plain else "DIFFER")
+            + f" (max |d_sq| diff {err:.3g}); indices "
+            + ("identical" if same else "DIFFER")
+            + f" card vs CPU, max |d_sq| diff {diff:.3g} m^2; kernel "
+            f"{ms * 1e3:.1f} us a call ({counted} count, {launches} device "
+            f"launches), plain version {plain_ms:.3f} ms ({plain_launches} "
+            f"launches); bound {bound[0] * 1e3:.1f} us ({bound[1]}), issue "
+            f"floor {floor * 1e3:.1f} us at {per_pair[5]:.2f} instructions "
+            f"a pair: kernel {ms / floor:.2f}x the floor")
         if not win_same:
             fail(f"_window_block {name}: the card's window differs from the "
                  "plain gather's")
+        if not same_plain:
+            fail(f"masked_knn {name}: the kernel differs from the plain "
+                 "version on the card")
         if not same:
             fail(f"masked_knn {name}: card and CPU indices differ")
+        if counted != 1:
+            fail(f"masked_knn {name}: counted {counted} launches for a call")
+        if row is None:
+            row = kernel_row("masked_knn", "knn.cu",
+                             "vloam_tpu/lidar/knn.py:47", err, ms, plain_ms,
+                             bound)
     print(f"[M1 masked_knn] 2 calls a grid a frame at one rank (2 rounds; "
-          f"x D shards at D ranks): " + "; ".join(lines), flush=True)
+          f"x D shards at D ranks): " + "; ".join(lines) + f" {clocks()}",
+          flush=True)
+    return row
 
 
 def mesh_rank_main(backend: str, inp: str, out: str) -> None:
@@ -2486,7 +2548,7 @@ def mesh_loop_phase(cfg, frames, res_host, card_14d, mesh) -> None:
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
-    build_phase()
+    knn_per_pair = build_phase()
     from vloam_tpu_torch.config import kitti_hdl64
     from vloam_tpu_torch.data.synthetic import hdl64_elevations
     from vloam_tpu_torch.lidar.scan_registration import polar_directions
@@ -2534,8 +2596,10 @@ def main() -> None:
 
     t_mesh = time.perf_counter()
     mesh = data_mesh()
-    outs_m2, eng_m2 = mesh_engine_phase(cfg, frames, poses, outs_gpu, mesh)
-    mesh_knn_phase(cfg, eng_m2, frames[N_FRAMES - 1], outs_m2[-1])
+    outs_m2, eng_m2, launches_m2 = mesh_engine_phase(cfg, frames, poses,
+                                                     outs_gpu, mesh)
+    knn = mesh_knn_phase(cfg, eng_m2, frames[N_FRAMES - 1], outs_m2[-1],
+                         knn_per_pair)
     del eng_m2
     mesh_ranks_phase(frames, outs_m2)
     mesh_vloam_phase(cfg_v, frames, images, calib, res_v, mesh)
@@ -2550,13 +2614,14 @@ def main() -> None:
     # with the counts set to 0 just before: the batch drive (phase 10), the
     # combined engine (phase 8) for K3, the association forms (phase 4b)
     # for K2 and ring_min1, the ring-variants entry point (phase 12) for
-    # ring_argmin2
+    # ring_argmin2, the mesh engine (M2) for masked_knn
     for row in (k1, packed, probe, s2):
         row["launches"] = launches_b[row["name"]]
     for row in (k2, s1_min1):
         row["launches"] = launches_assoc[row["name"]]
     k3["launches"] = launches_v["zncc_describe"]
-    kernels = [k1, k2, k3, probe, s2, s1_min1, s1_argmin2, packed]
+    knn["launches"] = launches_m2["masked_knn"]
+    kernels = [k1, k2, k3, probe, s2, s1_min1, s1_argmin2, packed, knn]
     if any(not row["launches"] > 0 for row in kernels):
         fail(f"a kernel was never launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -99,7 +99,8 @@ def test_ring_min1_dispatch_has_no_fallback():
 def test_launch_counters_cover_all_six_kernels():
     assert set(kernels.LAUNCHES) == {
         "select_rings", "ring_min2", "zncc_describe", "row_gather",
-        "grid_probe", "ring_min1", "ring_argmin2", "ring_min1_packed"}
+        "grid_probe", "ring_min1", "ring_argmin2", "ring_min1_packed",
+        "masked_knn"}
     kernels.reset_launches()
     assert not any(kernels.LAUNCHES.values())
 

@@ -69,6 +69,15 @@ needs JAX.)
   unrolled steps do not divide).
 - ring_slab_assoc under each of the four impls: the card's picks and
   distances equal the CPU's.
+- masked_knn (kernels/csrc/knn.cu): indices and distance bits identical to
+  masked_knn_plain on the card, and indices to the CPU's, on every case of
+  kernel_cases.knn_cases (ties across the reference's 4096 tile and the
+  kernel's 256-slot tiles and slices, queries on candidates, too few live
+  or too few candidates and the reference's padding indices, k = 1, 3, 5,
+  8, the mesh engine's corner window shape) and at random shapes no tile,
+  slice or block divides, at the default slices and at 1 and 16 blocks an
+  SM (other slice counts); one count a call; k > 8, another dtype and a
+  strided input are refused.
 - The depth grid (vision/depth_map.py) built twice on the card: identical,
   and identical to the CPU's (each cell adds its points in point order).
 - The batch engine on the card against the same engine on the CPU, the
@@ -530,7 +539,8 @@ def test_xyz_engine_on_card_matches_cpu(cuda):
     # row_gather
     assert n_gpu == {"select_rings": 4, "ring_min2": 0, "ring_min1": 0,
                      "row_gather": 8, "grid_probe": 4, "zncc_describe": 0,
-                     "ring_argmin2": 0, "ring_min1_packed": 16}
+                     "ring_argmin2": 0, "ring_min1_packed": 16,
+                     "masked_knn": 0}
     np.testing.assert_allclose(gpu["t_w_lo"], cpu["t_w_lo"], atol=2e-2)
     np.testing.assert_allclose(gpu["t_w_mo"], cpu["t_w_mo"], atol=3e-2)
 
@@ -607,7 +617,8 @@ def test_vloam_engine_on_card_ignores_tf32_settings(cuda):
     assert kernels.LAUNCHES == {"select_rings": 8, "ring_min2": 0,
                                 "ring_min1": 0, "row_gather": 16,
                                 "grid_probe": 8, "zncc_describe": 8,
-                                "ring_argmin2": 0, "ring_min1_packed": 32}
+                                "ring_argmin2": 0, "ring_min1_packed": 32,
+                                "masked_knn": 0}
     assert np.isfinite(off).all() and (off[1:, 31] > 0).all()
     np.testing.assert_array_equal(on, off)
 
@@ -727,7 +738,8 @@ def test_host_engine_runs_on_the_card_by_default(cuda):
                                 "ring_min1": 0, "row_gather": 2 * n,
                                 "grid_probe": n, "zncc_describe": n,
                                 "ring_argmin2": 0,
-                                "ring_min1_packed": 4 * (n - 1)}
+                                "ring_min1_packed": 4 * (n - 1),
+                                "masked_knn": 0}
     cpu = run_sequence(cfg, calib, frames, device="cpu")
     assert np.isfinite(gpu["VO"]).all()
     for which, tol in (("LO", 2e-2), ("MO", 3e-2)):
@@ -757,3 +769,59 @@ def test_lk_flow_on_card_matches_cpu(cuda):
     both = mask & gpu_ok & cpu_ok
     close = (gpu_xy - cpu_xy).abs().amax(dim=1) <= 0.01
     assert close[both].float().mean() >= 0.99
+
+
+# ---------------------------------------------------------------- masked_knn
+
+def _knn_same(q, c, m, k, cuda):
+    """The kernel (through lidar.knn.masked_knn) and masked_knn_plain on the
+    same card tensors: indices and distance bits identical; one count a
+    call; indices as the CPU's."""
+    from vloam_tpu_torch.lidar import knn
+
+    args = [torch.from_numpy(a).to(cuda) for a in (q, c, m)]
+    n0 = kernels.LAUNCHES["masked_knn"]
+    d, i = knn.masked_knn(*args, k=k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["masked_knn"] == n0 + 1
+    d_p, i_p = knn.masked_knn_plain(*args, k=k)
+    assert torch.equal(i, i_p)
+    assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+    _, i_c = knn.masked_knn_plain(*(a.cpu() for a in args), k=k)
+    assert torch.equal(i.cpu(), i_c)
+
+
+@pytest.mark.parametrize("case", kernel_cases.knn_cases(),
+                         ids=lambda c: c.name)
+def test_masked_knn_kernel_crafted_cases(cuda, case):
+    _knn_same(case.queries, case.cands, case.mask, case.k, cuda)
+
+
+@pytest.mark.parametrize("Q,C,k,live", [(777, 70001, 5, 0.4),
+                                        (129, 4099, 1, 0.9),
+                                        (2050, 33333, 8, 0.1),
+                                        (5, 260, 5, 0.02)])
+@pytest.mark.parametrize("blocks_per_sm", [4, 1, 16])
+def test_masked_knn_kernel_matches_plain(cuda, rng, monkeypatch, Q, C, k,
+                                         live, blocks_per_sm):
+    """At the default slices (4 blocks an SM) and at other slice counts."""
+    monkeypatch.setattr(kernels, "KNN_BLOCKS_PER_SM", blocks_per_sm)
+    q = rng.uniform(-80, 80, (Q, 3)).astype(np.float32)
+    c = rng.uniform(-80, 80, (C, 3)).astype(np.float32)
+    c[C // 2:C // 2 + 40] = c[7]  # equal distances across slices
+    _knn_same(q, c, rng.random(C) < live, k, cuda)
+
+
+def test_masked_knn_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((8, 3), device=cuda)
+    c = torch.zeros((64, 3), device=cuda)
+    m = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="k = 9"):
+        kernels.masked_knn(q, c, m, 9, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.masked_knn(q, c, m.to(torch.uint8), 5, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.masked_knn(q, torch.zeros((64, 6), device=cuda)[:, ::2], m,
+                           5, 0)
+    with pytest.raises(ValueError, match="candidates"):
+        kernels.masked_knn(q, c[:3], m[:3], 5, 0)

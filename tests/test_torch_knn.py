@@ -12,6 +12,12 @@ CPU.
   expanded |q|^2 + |c|^2 - 2 q.c in float32, whose cancellation at 80 m is
   ~1e-3 m^2, and round it in different orders) and +inf exactly where the
   reference's are.
+- masked_knn_plain (the plain version of kernels/csrc/knn.cu) against the
+  jitted reference on every small case of kernel_cases.knn_cases (ties
+  across the reference's tile and the kernel's 256-slot tiles, queries on
+  candidates, too few live or too few candidates, k = 1, 3, 5, 8), with the
+  same tolerances; masked_knn on CPU tensors launches no kernel; the slices
+  the kernel's wrapper cuts cover the candidates.
 - _window_block on a [16384, 96] block (2^17 buckets over 8 ranks, corner
   cap 32) holding live rows, empty rows and duplicated rows (equal keys):
   the rows taken, their points and mask bit for bit, and the active-row
@@ -29,8 +35,10 @@ import torch
 
 from vloam_tpu.lidar import knn as jknn
 from vloam_tpu.parallel import mesh_fused as jmf
+from vloam_tpu_torch import kernels
 from vloam_tpu_torch.lidar import knn as tknn
 from vloam_tpu_torch.parallel import mesh_fused as tmf
+from vloam_tpu_torch.tools import kernel_cases
 
 torch.set_num_threads(1)
 
@@ -89,6 +97,50 @@ def test_masked_knn_matches_jax(name):
                                    torch.from_numpy(m), k=5, **tiles)
         np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
         _assert_dist(d_t.numpy(), d_j)
+
+
+_KNN_CASES = [c for c in kernel_cases.knn_cases() if c.small]
+
+
+@pytest.mark.parametrize("case", _KNN_CASES, ids=lambda c: c.name)
+def test_masked_knn_plain_matches_jax_on_crafted_cases(case):
+    d_j, i_j = jknn.masked_knn(jnp.asarray(case.queries),
+                               jnp.asarray(case.cands), jnp.asarray(case.mask),
+                               k=case.k)
+    args = (torch.from_numpy(case.queries), torch.from_numpy(case.cands),
+            torch.from_numpy(case.mask))
+    for tiles in ({}, {"q_tile": 64, "c_tile": 1000}):
+        d_t, i_t = tknn.masked_knn_plain(*args, k=case.k, **tiles)
+        np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+        _assert_dist(d_t.numpy(), d_j)
+    d, i = tknn.masked_knn(*args, k=case.k)  # the CPU dispatch
+    assert torch.equal(d, d_t) and torch.equal(i, i_t)
+
+
+def test_masked_knn_on_cpu_launches_nothing():
+    case = _KNN_CASES[0]
+    before = dict(kernels.LAUNCHES)
+    tknn.masked_knn(torch.from_numpy(case.queries),
+                    torch.from_numpy(case.cands),
+                    torch.from_numpy(case.mask), k=case.k)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("Q,n,n_sm", [(2048, 131072, 132), (6144, 65536, 132),
+                                      (300, 9005, 132), (1, 1, 132),
+                                      (70, 8, 16), (512, 131072, 132),
+                                      (9000, 300, 4)])
+def test_knn_slices_hold_a_tile_each(Q, n, n_sm):
+    """Every slice is dealt a 256-slot tile at least, and the slice kernel's
+    blocks come near the asked number an SM: the mesh windows' shapes at
+    the default."""
+    b = kernels.KNN_BLOCKS_PER_SM
+    slices = kernels.knn_slices(Q, n, n_sm, b)
+    tiles = -(-n // kernels.KNN_TILE)
+    q_blocks = -(-Q // kernels.KNN_THREADS)
+    assert 1 <= slices <= tiles
+    assert slices == tiles or q_blocks * slices >= b * n_sm
+    assert slices == 1 or q_blocks * (slices - 1) < b * n_sm
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -207,3 +259,34 @@ def test_rank_blocks_match_jax_devices(D):
     back = convert.join_map_states(evicted)
     np.testing.assert_array_equal(back.cube.corner.pts, want[3])
     np.testing.assert_array_equal(back.cube.surf.pts, st.cube.surf.pts)
+
+
+_KNN_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_116knn_slice_kernelILi5EEEvPKfS2_PKhiiiiPiS5_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   FMUL R8, R5, R6 ;
+        /*0030*/                   FADD R9, R8, R7 ;
+        /*0040*/                   FSETP.LTU.OR P0, PT, R9, R3, P0 ;
+        /*0050*/               @P0 BRA 0x90 ;
+        /*0060*/                   IADD3 R2, R2, 0x40, RZ ;
+        /*0070*/                   ISETP.GE.AND P1, PT, R2, 0x400, PT ;
+        /*0080*/              @!P1 BRA 0x10 ;
+        /*0090*/                   SEL R10, R11, R12, P2 ;
+        /*00a0*/               @P3 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_116knn_merge_kernelILi5EEEvPKiS2_iiPfPx
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_knn_sass_counts_the_hot_loop():
+    """kernels.build.knn_sass, which chip_smoke.py phase 2 prints: the slice
+    kernel's main loop is the innermost backward branch's body (not the
+    loop around it that holds the examination), per KNN_STEP slots."""
+    from vloam_tpu_torch.kernels import build
+
+    lines, per_pair = build.knn_sass(_KNN_SASS)
+    assert per_pair == {5: 8 / build.KNN_STEP}
+    assert lines == ["knn_slice_kernel<5> 12 instructions, main loop 8 for "
+                     f"16 slots = {8 / 16:.2f} a pair"]

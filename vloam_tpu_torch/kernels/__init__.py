@@ -19,19 +19,25 @@ S2 grid_probe    (csrc/grid_probe.cu)   <- scripts/profile_pallas_gather.py::
                  frame in one launch
    row_gather    (csrc/row_gather.cu)   <- the same, the bucket-row gather
                  under the map's inserts
+   masked_knn    (csrc/knn.cu)          <- lidar/knn.py::masked_knn (XLA in
+                 the reference): the mesh chunk's window sweep, the k
+                 nearest live candidates by (distance, index)
 
 The wrappers here accept CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate outputs with torch.empty, launch on PyTorch's
 current stream and raise if the launch is refused. The CPU dispatch to the
 plain PyTorch versions lives in the callers (lidar/scan_registration.py,
-lidar/ring_assoc.py, lidar/gridmap.py, vision/features.py) and is taken
-only for CPU tensors.
+lidar/ring_assoc.py, lidar/gridmap.py, lidar/knn.py, vision/features.py)
+and is taken only for CPU tensors.
 
 ``LAUNCHES`` counts launches per kernel; each wrapper adds one exactly
-where its kernel is launched.
+where its kernel is launched (masked_knn's is one call of its C entry
+point, which launches the slice kernel and the merge behind it).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -39,7 +45,12 @@ from . import build
 
 LAUNCHES = {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0,
             "row_gather": 0, "grid_probe": 0, "ring_min1": 0,
-            "ring_argmin2": 0, "ring_min1_packed": 0}
+            "ring_argmin2": 0, "ring_min1_packed": 0, "masked_knn": 0}
+
+KNN_THREADS = 128  # queries a block of knn.cu's slice kernel (kThreads)
+KNN_TILE = 256  # candidate slots a shared-memory tile (kTile)
+KNN_MAX_K = 8  # knn.cu instantiates k = 1 .. 8
+KNN_BLOCKS_PER_SM = 4  # slice blocks a masked_knn launch aims at per SM
 
 
 def reset_launches() -> None:
@@ -276,3 +287,59 @@ def zncc_describe(img: torch.Tensor, xy: torch.Tensor, p: int) -> torch.Tensor:
     _check(lib, err, "zncc_describe")
     LAUNCHES["zncc_describe"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def knn_slices(Q: int, n_slots: int, n_sm: int,
+               blocks_per_sm: int) -> int:
+    """Into how many slices masked_knn deals the KNN_TILE-slot tiles of
+    n_slots candidate slots for Q queries: enough that the slice kernel's
+    ceil(Q / KNN_THREADS) x slices blocks come near blocks_per_sm an SM,
+    and no more than there are tiles."""
+    q_blocks = -(-Q // KNN_THREADS)
+    want = max(1, -(-blocks_per_sm * n_sm // q_blocks))
+    return min(want, -(-n_slots // KNN_TILE))
+
+
+def masked_knn(queries: torch.Tensor, cands: torch.Tensor, mask: torch.Tensor,
+               k: int, pad: int):
+    """The k-NN sweep on the card: queries [Q, 3] f32, cands [C, 3] f32,
+    mask [C] bool -> (d [Q, k] f32 ascending, idx [Q, k] int64), the k
+    smallest (distance bits, index) keys over the C candidates and `pad`
+    masked padding slots after them (lidar.knn._padding), bit-identical to
+    lidar.knn.masked_knn_plain. 1 <= k <= 8; C >= 1 and C + pad >= k."""
+    _require(queries, "queries", torch.float32, 2)
+    _require(cands, "cands", torch.float32, 2)
+    _require(mask, "mask", torch.bool, 1)
+    Q, C = queries.shape[0], cands.shape[0]
+    if queries.shape[1] != 3 or cands.shape[1] != 3 or mask.shape[0] != C:
+        raise ValueError(f"masked_knn: bad shapes {queries.shape} "
+                         f"{cands.shape} {mask.shape}")
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"masked_knn: k = {k} outside 1 .. {KNN_MAX_K}")
+    if C < 1 or pad < 0 or C + pad < k or C + pad >= 2**30:
+        raise ValueError(f"masked_knn: {C} candidates and {pad} padding "
+                         f"slots for k = {k}")
+    if not queries.device == cands.device == mask.device:
+        raise ValueError("masked_knn: inputs on different devices")
+    dev = queries.device
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
+    if Q == 0:
+        return out_d, out_i
+    slices = knn_slices(Q, C + pad, _sm_count(dev), KNN_BLOCKS_PER_SM)
+    scratch = torch.empty(2 * slices * k * Q, dtype=torch.int32, device=dev)
+    lib = build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vloam_masked_knn(
+            queries.data_ptr(), cands.data_ptr(), mask.data_ptr(), Q, C, k,
+            pad, slices, scratch.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), stream)
+    _check(lib, err, "masked_knn")
+    LAUNCHES["masked_knn"] += 1
+    return out_d, out_i

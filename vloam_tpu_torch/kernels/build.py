@@ -26,16 +26,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# -fmad=false: the ring reductions' distances (ring_min2.cu, ring_min1.cu;
-# the packed form's fused multiply-adds are explicit) must round like the
-# plain PyTorch versions (separately rounded products and sums) for their
-# argmins to match exactly.
+# -fmad=false: the ring reductions' and the k-NN's distances (ring_min2.cu,
+# ring_min1.cu, knn.cu; the packed form's fused multiply-adds are explicit)
+# must round like the plain PyTorch versions (separately rounded products
+# and sums) for their argmins to match exactly.
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
 
-# a measurement switch (VLOAM_S1_PART, VLOAM_RG_PART, VLOAM_K3_PART) set to
-# anything but 0
+# a measurement switch (VLOAM_S1_PART, VLOAM_RG_PART, VLOAM_K3_PART,
+# VLOAM_KNN_PART) set to anything but 0
 _PART = re.compile(r"-DVLOAM_\w+_PART=(?!0$)")
 
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's own prefix
@@ -261,6 +261,27 @@ def packed_sass(text: str) -> tuple[list[str], list[str]]:
     return lines, converting
 
 
+KNN_STEP = 16  # slots knn.cu's main loop tests a step (kStep)
+
+
+def knn_sass(text: str) -> tuple[list[str], dict[int, float]]:
+    """knn_slice_kernel's instantiations in machine code (cuobjdump -sass
+    text): per k its instructions in all and in its main loop (the hot path,
+    KNN_STEP slots a step) and per (query, slot) pair there. Returns the
+    lines and the instructions a pair by k."""
+    lines, per_pair = [], {}
+    for name, ins in sorted(parse_sass(text).items()):
+        if not name.startswith("knn_slice_kernel<"):
+            continue
+        k = int(name[name.index("<") + 1:-1])
+        loop = hottest_loop(ins)
+        per_pair[k] = len(loop) / KNN_STEP
+        lines.append(f"{name} {len(ins)} instructions, main loop "
+                     f"{len(loop)} for {KNN_STEP} slots = {per_pair[k]:.2f} "
+                     "a pair")
+    return lines, per_pair
+
+
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the C signatures.
     After the first call this is a dict lookup: the wrappers call it on
@@ -287,6 +308,8 @@ def load() -> ctypes.CDLL:
     lib.vloam_select_rings.restype = i
     lib.vloam_zncc_describe.argtypes = [p, p, p, i, i, i, i, p]
     lib.vloam_zncc_describe.restype = i
+    lib.vloam_masked_knn.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.vloam_masked_knn.restype = i
     lib.vloam_error_string.argtypes = [i]
     lib.vloam_error_string.restype = ctypes.c_char_p
     _loaded[path] = lib

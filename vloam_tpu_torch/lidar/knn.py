@@ -1,10 +1,14 @@
 """Masked brute-force nearest neighbours (port of vloam_tpu/lidar/knn.py).
 
 The reference sweeps candidates in tiles of a dense |q|^2 + |c|^2 - 2 q.c
-distance matrix and merges a running top-k (XLA ops; no Pallas kernel). The
-port computes the same expanded form with q.c as three broadcast products,
-not a matmul, so no TF32 or cuBLAS setting touches the distances, in tiles
-of at most q_tile x c_tile pairs: no [Q, C] matrix is ever held.
+distance matrix and merges a running top-k (XLA ops; no Pallas kernel). On
+CUDA tensors masked_knn launches the hand-written kernel
+kernels/csrc/knn.cu (one thread a query, its running top-k in registers,
+candidates in slices across blocks and a merge). masked_knn_plain is its
+plain version, taken for CPU tensors: the same expanded form with q.c as
+three broadcast products, not a matmul, so no TF32 or cuBLAS setting
+touches the distances, in tiles of at most q_tile x c_tile pairs: no [Q, C]
+matrix is ever held. The two are bit-identical.
 
 Ties fall as the reference's: its lax.top_k orders equal values lower index
 first, and its merges put the running best before the new tile, so its
@@ -25,6 +29,8 @@ Distances carry the float32 cancellation of the expanded form (~1e-3 m^2 at
 from __future__ import annotations
 
 import torch
+
+from .. import kernels
 
 _REF_C_TILE = 4096  # the reference's candidate tile: its padding indices
 
@@ -91,8 +97,23 @@ def masked_knn(queries: torch.Tensor, cands: torch.Tensor,
                c_tile: int | None = None):
     """k nearest live candidates of each query: queries [Q, 3], cands
     [C, 3], c_mask [C] bool. Returns (d_sq [Q, k] ascending, idx [Q, k]
-    int64); masked candidates appear as +inf. The tile sizes change no
-    result."""
+    int64); masked candidates appear as +inf. CPU tensors take
+    masked_knn_plain (q_tile, c_tile: its tiles, which change no result);
+    CUDA tensors launch kernels/csrc/knn.cu (k <= 8), or raise: there is no
+    fallback."""
+    if queries.device.type == "cpu":
+        return masked_knn_plain(queries, cands, c_mask, k, q_tile, c_tile)
+    return kernels.masked_knn(queries.contiguous(), cands.contiguous(),
+                              c_mask.contiguous(), k,
+                              _padding(cands.shape[0], k))
+
+
+def masked_knn_plain(queries: torch.Tensor, cands: torch.Tensor,
+                     c_mask: torch.Tensor, k: int = 5,
+                     q_tile: int | None = None, c_tile: int | None = None):
+    """masked_knn in plain PyTorch, on any device: the expanded distances
+    tile by tile, the k smallest keys of each tile merged into a running
+    top-k. The tile sizes change no result."""
     Q, C = queries.shape[0], cands.shape[0]
     dev = queries.device
     q_tile, c_tile = _tiles(dev, q_tile, c_tile)

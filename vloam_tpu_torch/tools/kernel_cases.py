@@ -2,12 +2,14 @@
 select_rings (strict sector selection), K2 ring_min2 (per-ring 2-smallest),
 S1 ring_min1 (per-ring minimum) and ring_argmin2 (argmin, mask, argmin),
 ring_min1_packed (the packed-key minimum of the quantized forms), K3
-zncc_describe (patch descriptors) and S2 grid_probe (the map's 8-cell
-probe). Plain numpy from a seed; no device logic.
+zncc_describe (patch descriptors), S2 grid_probe (the map's 8-cell probe)
+and masked_knn (the mesh chunk's window sweep). Plain numpy from a seed; no
+device logic.
 
 The same cases are used three times: the CPU tests hold the plain PyTorch
 versions to the JAX package on them (tests/test_torch_scan_registration.py,
-tests/test_torch_ring_assoc.py, tests/test_torch_vision.py), the GPU tests
+tests/test_torch_ring_assoc.py, tests/test_torch_vision.py,
+tests/test_torch_knn.py), the GPU tests
 hold the kernels to the plain versions (tests/test_torch_kernels_cuda.py),
 and so does chip_smoke.py.
 
@@ -60,6 +62,17 @@ class ProbeCase(NamedTuple):
     # (table [n_streams * n_buckets, 3*cap] f32, queries [Q, 3] f32, cell)
     # of the corner grid, then of the surf grid
     jobs: tuple
+
+
+class KnnCase(NamedTuple):
+    name: str
+    queries: np.ndarray  # [Q, 3] f32
+    cands: np.ndarray  # [C, 3] f32
+    mask: np.ndarray  # [C] bool
+    k: int
+    # False for the mesh-window-sized case: held on the card only (2.7e8
+    # pairs; the CPU tests hold the small cases against JAX)
+    small: bool = True
 
 
 class ZnccCase(NamedTuple):
@@ -572,4 +585,85 @@ def zncc_cases(seed: int = 16833) -> list[ZnccCase]:
         xy.append(_patch_at(40 + 32 * len(regions) - p // 2, 8, p))
         cases.append(ZnccCase(f"flat_patches_p{p}", img,
                               np.asarray(xy, np.float32), p))
+    return cases
+
+
+def _cloud(rng, n: int, scale: float = 80.0) -> np.ndarray:
+    return rng.uniform(-scale, scale, (n, 3)).astype(np.float32)
+
+
+def _near(rng, p: np.ndarray, n: int, sigma: float) -> np.ndarray:
+    """n points around p [3] (sigma m apart), float32."""
+    return (p + rng.normal(0.0, sigma, (n, 3))).astype(np.float32)
+
+
+def knn_window(rng, Q: int = 2048, rows: int = 4096, cap: int = 32,
+               active: int = 1400) -> KnnCase:
+    """A mesh window as parallel/mesh_fused.py::_window_block lays it out:
+    `rows` bucket rows of `cap` slots, the rows nearest the centre first;
+    `active` rows hold 1-12 points of one 2 m cell, every other slot is
+    empty (masked, at the map's SENTINEL 1e6); Q queries around live points
+    of the window, within 0.5 m."""
+    cells = rng.uniform(-60.0, 60.0, (active, 3)) * np.array([1, 1, 0.1])
+    cells = cells[np.argsort(np.linalg.norm(cells, axis=1), kind="stable")]
+    pts = np.full((rows, cap, 3), 1.0e6, np.float32)
+    mask = np.zeros((rows, cap), bool)
+    for r, c in enumerate(cells):
+        n = rng.integers(1, 13)
+        pts[r, :n] = c + rng.uniform(0.0, 2.0, (n, 3))
+        mask[r, :n] = True
+    pts, mask = pts.reshape(-1, 3), mask.reshape(-1)
+    live = np.flatnonzero(mask)
+    q = pts[rng.choice(live, Q)] + rng.normal(0.0, 0.5, (Q, 3))
+    return KnnCase(f"mesh_window_{Q}x{rows * cap}", q.astype(np.float32),
+                   pts, mask, 5, small=False)
+
+
+def knn_cases(seed: int = 16837) -> list[KnnCase]:
+    """masked_knn's rules: equal distances (duplicated candidates) across
+    the reference's 4096-slot tile and across every multiple of 256 slots
+    (the kernel's tile; its slices are whole tiles), queries exactly on
+    candidates (d = 0 after the clamp), fewer live candidates than k, all
+    masked, fewer candidates than k (the reference's padding indices C,
+    C + 1, ... in the result), candidate counts no tile divides, k = 1, 3,
+    5 and 8 at 80 m coordinates; and one case of the mesh engine's corner
+    window shape (2048 x 4096 * 32 slots, mostly masked), for the card."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    # one point duplicated across the reference's 4096 boundary and across
+    # multiples of 256; queries on it and near it; one copy masked
+    c = _cloud(rng, 9000)
+    for lo in (250, 1020, 2044, 4090, 6140, 8188):
+        c[lo:lo + 12] = c[11]
+    m = rng.random(9000) < 0.9
+    m[c[:, 0] == c[11, 0]] = True
+    m[4093] = False
+    q = np.concatenate([_near(rng, c[11], 40, 0.01), c[11][None],
+                        _cloud(rng, 259)])
+    cases.append(KnnCase("ties_across_tiles", q, c, m, 5))
+
+    # queries exactly on candidates, some of them duplicated twice
+    c = _cloud(rng, 7000)
+    c[3000:3100] = c[100:200]
+    c[6990:7000] = c[150:160]
+    q = np.concatenate([c[rng.choice(7000, 200)], c[100:200]])
+    cases.append(KnnCase("queries_on_candidates", q, c,
+                         np.ones(7000, bool), 5))
+
+    c = _cloud(rng, 5000)
+    m = np.zeros(5000, bool)
+    m[[7, 4095, 4999]] = True
+    cases.append(KnnCase("fewer_live_than_k", _cloud(rng, 130), c, m, 5))
+    cases.append(KnnCase("all_masked", _cloud(rng, 130), _cloud(rng, 6000),
+                         np.zeros(6000, bool), 5))
+    cases.append(KnnCase("fewer_candidates_than_k", _cloud(rng, 130),
+                         _cloud(rng, 3), np.array([True, False, True]), 5))
+    cases.append(KnnCase("one_candidate_k8", _cloud(rng, 70),
+                         _cloud(rng, 1), np.ones(1, bool), 8))
+    for k, C, live in ((1, 9000, 0.7), (3, 4097, 0.5), (5, 12345, 0.6),
+                       (8, 8191, 0.3)):
+        cases.append(KnnCase(f"random_k{k}_C{C}", _cloud(rng, 300),
+                             _cloud(rng, C), rng.random(C) < live, k))
+    cases.append(knn_window(rng))
     return cases

@@ -26,6 +26,10 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+# instruction issue: 132 SMs x 4 schedulers x 32 lanes, one warp instruction
+# a scheduler a clock, at the H100 SXM's 1980 MHz maximum SM clock
+H100_LANES = 132 * 4 * 32
+H100_SM_HZ = 1.98e9
 _L2_FLUSH_BYTES = 256 << 20  # 5x the H100's 50 MB L2
 # the blocker: float32 products of [8192, 8192], ~20 ms each on an H100
 _BLOCKER_N = 8192
@@ -146,3 +150,12 @@ def knn_bound(Q: int, C: int, k: int) -> tuple[float, str]:
     [C, 3] candidates and their [C] mask read once, the [Q, k] float32
     distances and int64 indices written once."""
     return bound_ms(Q * 12 + C * 13 + Q * k * 12, 6 * Q * C)
+
+
+def knn_issue_floor(Q: int, C: int, per_pair: float) -> float:
+    """kernels/csrc/knn.cu's issue floor in ms: the least time an H100
+    takes to issue per_pair instructions (its main loop's, as
+    kernels.build.knn_sass counts the machine code) for each of Q x C
+    (query, slot) pairs, every scheduler issuing every clock at the maximum
+    SM clock."""
+    return Q * C * per_pair / (H100_LANES * H100_SM_HZ) * 1e3

@@ -1,6 +1,7 @@
-"""Did a change move the engines' outputs? Drive the three engines over a
-short synthetic kitti_hdl64 drive on the GPU and save their raw output rows,
-or compare two such files.
+"""Did a change move the engines' outputs? Drive the three engines and the
+mesh engine (LoamEngine with a one-rank NCCL mesh, whose mapping sweeps its
+windows with masked_knn) over a short synthetic kitti_hdl64 drive on the GPU
+and save their raw output rows, or compare two such files.
 
     python -m vloam_tpu_torch.tools.trajectories save new.npz
     python -m vloam_tpu_torch.tools.trajectories diff old.npz new.npz \
@@ -56,6 +57,14 @@ def save(path: str) -> None:
     for f in frames:
         eng.push_polar(f)
     out = {"LoamEngine": eng.finish()}
+
+    from vloam_tpu_torch.parallel.sharded import data_mesh
+
+    meng = LoamEngine(cfg, chunk=5, mesh=data_mesh(), mesh_window_rows=4096)
+    for f in frames:
+        meng.push_polar(f)
+    out["LoamEngine(mesh=)"] = meng.finish()
+    torch.distributed.destroy_process_group()
 
     nb, nf = N_BATCH
     beng = BatchLoamEngine(cfg, nb, chunk=3, device="cuda")
