@@ -1,8 +1,9 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the LiDAR-only
 LOAM engine, the combined camera + LiDAR engine, the 4-stream lockstep
 batch engine, the host layer around them (command line, sequence runner,
-checkpoints, loop closure), the per-stage host engine and the distributed
-(mesh) paths.
+checkpoints, loop closure), the per-stage host engine, the distributed
+(mesh) paths and two of the accuracy evaluations (the 100-frame golden
+drive, the 500-frame long drive).
 
     python3 chip_smoke.py
 
@@ -170,6 +171,23 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      5. close_loops(mesh=<one NCCL rank>) on 14b's trajectory: 14d's loops,
         poses within 1e-3 m; `python -m vloam_tpu_torch run --synthetic 12
         --mesh 1` with no --device
+  E. the accuracy evaluations (vloam_tpu_torch.tools.eval_*, the
+     counterparts of scripts/eval_*.py), frames made in 8 spawned worker
+     processes:
+     1. the 100-frame golden drive: tools.eval_synthetic's lidar_only mode
+        (xyz ingest, run_sequence_fused with chunk 10) once: MO max error
+        against ground truth < 0.15 m; each hand kernel's launches over the
+        run as phase 5's for as many frames (select_rings, ring_min1_packed,
+        grid_probe, row_gather 1 / 4 / 1 / 2 a frame, the others 0); the LO
+        / MO metrics beside the JAX package's tests/golden/
+        synthetic_metrics.json and the MO gap to its
+        synthetic_lidar_MO.npy frame by frame (both made on a TPU: printed,
+        not gated)
+     2. the 500-frame long drive (~600 m): tools.eval_long (LoamEngine,
+        chunk 16, a last chunk of 4): 500 finite LO / MO rows, MO t_rel <=
+        0.885 % and ATE rmse <= 4.90 m (1.5x the JAX package's, RESULTS.md),
+        0 degraded frames; crossings, each map grid's live slots and full
+        buckets at the end, frames/s
   B. vloam_tpu_torch.tools.bench (the port's bench.py) at 16 frames a
      window: its line parses, with bench.py's keys and the port's, finite
      numbers and the card's name
@@ -2545,6 +2563,104 @@ def mesh_loop_phase(cfg, frames, res_host, card_14d, mesh) -> None:
         fail(f"the --mesh 1 command line printed {said}")
 
 
+# ----------------------------------------------------------- the evaluations
+
+E1_FRAMES = 100  # scripts/eval_synthetic.py's drive
+E2_FRAMES = 500  # scripts/eval_long.py's
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden")
+# E1: MO within 0.15 m of ground truth (tests/test_golden_regression.py:37)
+E1_MO_MAX_ERR = 0.15
+# E2: 1.5x the JAX package's MO on the long drive, a TPU run (RESULTS.md:22-23:
+# LO t_rel 1.462 %, ATE rmse 9.445 m; MO 0.590 %, 3.267 m)
+E2_JAX = {"LO": (1.462, 9.445), "MO": (0.590, 3.267)}
+E2_MO_LIMITS = (0.885, 4.90)  # MO t_rel %, ATE rmse m
+
+
+def _metric_text(m: dict) -> str:
+    return (f"t_rel {m['t_rel_percent']:.3f} %, ATE rmse "
+            f"{m['ate_rmse_m']:.3f} m, max {m['ate_max_m']:.3f} m")
+
+
+def golden_drive_phase(cfg) -> None:
+    """E1: tools.eval_synthetic's lidar_only mode (xyz ingest, chunk 10) over
+    the 100-frame drive once; MO against ground truth, against the JAX
+    package's golden trajectory and metrics, and each hand kernel's
+    launches over the run."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.tools import eval_frames, eval_synthetic
+
+    t0 = time.perf_counter()
+    calib, frames, gt = eval_frames.synthetic_drive(E1_FRAMES, cfg)
+    kernels.reset_launches()
+    rec, res = eval_synthetic.run_mode("lidar_only", calib, frames, gt, cfg,
+                                       "cuda", runs=1)
+    launches = dict(kernels.LAUNCHES)
+    with open(os.path.join(GOLDEN, "synthetic_metrics.json")) as f:
+        jax_metrics = json.load(f)
+    golden = np.load(os.path.join(GOLDEN, "synthetic_lidar_MO.npy"))
+    gap = np.linalg.norm(res["MO"][:, :, 3] - golden[:, :, 3], axis=1)
+    m = rec["metrics"]
+    print(f"[E1 golden drive] {E1_FRAMES} frames, tools.eval_synthetic "
+          f"lidar_only (xyz ingest, chunk 10) in "
+          f"{time.perf_counter() - t0:.1f} s, {rec['fps_first']:.2f} frames/s "
+          f"(run_sequence_fused's clock); "
+          + "; ".join(f"{w} {_metric_text(m[w])} (the JAX package's golden "
+                      f"metrics, a TPU run: "
+                      f"{_metric_text(jax_metrics['lidar_only/' + w])})"
+                      for w in ("LO", "MO"))
+          + f"; launches {launches}", flush=True)
+    print(f"[E1 golden drive] MO gap to tests/golden/synthetic_lidar_MO.npy "
+          f"(made on a TPU; a reading, not a gate): max {gap.max():.4f} m at "
+          f"frame {int(gap.argmax())}, mm by frame "
+          + " ".join(f"{1e3 * g:.1f}" for g in gap), flush=True)
+    if not np.isfinite(res["MO"]).all() or res["MO"].shape != gt.shape:
+        fail(f"E1: MO {res['MO'].shape} not finite")
+    if not m["MO"]["ate_max_m"] < E1_MO_MAX_ERR:
+        fail(f"E1: MO max error {m['MO']['ate_max_m']} m >= {E1_MO_MAX_ERR}")
+    want = lidar_launches(E1_FRAMES)
+    if launches != want:
+        fail(f"E1: kernel launches {launches}, want {want}")
+
+
+def long_drive_phase(cfg) -> None:
+    """E2: tools.eval_long over the 500-frame drive (chunk 16, a last chunk
+    of 4): every output finite, MO within 1.5x the JAX package's metrics,
+    no degraded frame."""
+    from vloam_tpu_torch import kernels
+    from vloam_tpu_torch.tools import eval_frames, eval_long
+
+    t0 = time.perf_counter()
+    frames, gt = eval_frames.long_drive(E2_FRAMES)
+    kernels.reset_launches()
+    try:
+        rec, _ = eval_long.run(frames, gt, cfg, "cuda")
+    except RuntimeError as e:  # rows missing or not finite
+        fail(f"E2: {e}")
+    launches = dict(kernels.LAUNCHES)
+    m = rec["metrics"]
+    occ = "; ".join(f"{name} {o['live_slots']} live slots of "
+                    f"{o['buckets'] * o['cap']}, {o['full_buckets']} full "
+                    f"buckets of {o['buckets']}"
+                    for name, o in rec["map"].items())
+    print(f"[E2 long drive] {E2_FRAMES} frames, {rec['distance_m']:.1f} m, "
+          f"{rec['crossings']} map recentre crossings, "
+          f"{rec['degraded_frames']} degraded frames, all outputs finite, "
+          f"in {time.perf_counter() - t0:.1f} s; {rec['fps_steady']:.2f} "
+          f"frames/s (eval_long.run's window) {clocks()}; "
+          + "; ".join(f"{w} {_metric_text(m[w])} (the JAX package, a TPU "
+                      f"run: t_rel {E2_JAX[w][0]} %, ATE rmse "
+                      f"{E2_JAX[w][1]} m)" for w in ("LO", "MO"))
+          + f"; map at the end: {occ}; launches {launches}", flush=True)
+    t_rel, ate = E2_MO_LIMITS
+    if not (m["MO"]["t_rel_percent"] <= t_rel
+            and m["MO"]["ate_rmse_m"] <= ate):
+        fail(f"E2: MO t_rel {m['MO']['t_rel_percent']} % or ATE rmse "
+             f"{m['MO']['ate_rmse_m']} m above {t_rel} % / {ate} m")
+    if rec["degraded_frames"]:
+        fail(f"E2: {rec['degraded_frames']} degraded frames")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = device_phase()
@@ -2606,6 +2722,11 @@ def main() -> None:
     mesh_loop_phase(cfg, frames, res_host, loops, mesh)
     torch.distributed.destroy_process_group()
     print(f"[M] phases M1-M5 in {time.perf_counter() - t_mesh:.1f} s",
+          flush=True)
+    t_eval = time.perf_counter()
+    golden_drive_phase(cfg)
+    long_drive_phase(cfg)
+    print(f"[E] phases E1-E2 in {time.perf_counter() - t_eval:.1f} s",
           flush=True)
     bench_phase(card, frames, images)
     print(f"[done] phases 1-B in {time.perf_counter() - t_start:.1f} s",

@@ -636,6 +636,13 @@ def test_entry_points_default_to_the_card():
          "--sensor", "tiny"], cwd=REPO, capture_output=True, text=True,
         timeout=120)
     assert proc.returncode == 2 and "--device cpu" in proc.stderr
+    # the accuracy evaluations refuse before they make a frame
+    from vloam_tpu_torch.tools import (eval_highway, eval_long,
+                                       eval_loop_closure, eval_synthetic)
+
+    for tool in (eval_synthetic, eval_long, eval_loop_closure, eval_highway):
+        with pytest.raises(RuntimeError, match="is_available"):
+            tool.main(["--frames", "2"])
 
 
 def test_port_host_modules_never_import_jax():

@@ -300,6 +300,11 @@ def test_port_never_imports_jax():
             "vloam_tpu_torch.tools.profile_grid_probe, "
             "vloam_tpu_torch.tools.profile_ring_variants, "
             "vloam_tpu_torch.tools.bench, vloam_tpu_torch.parallel.launch, "
+            "vloam_tpu_torch.tools.eval_frames, "
+            "vloam_tpu_torch.tools.eval_synthetic, "
+            "vloam_tpu_torch.tools.eval_long, "
+            "vloam_tpu_torch.tools.eval_loop_closure, "
+            "vloam_tpu_torch.tools.eval_highway, "
             "vloam_tpu_torch.cli, vloam_tpu_torch.pipeline, "
             "vloam_tpu_torch.runtime.checkpoint, "
             "vloam_tpu_torch.runtime.profiling, vloam_tpu_torch.data.kitti, "

@@ -7,13 +7,13 @@ Tolerances:
 - sharded_point_to_plane_gn: the pose within 1e-4 of the reference's;
 - sharded_map_alignment on tests/test_sharded_mapping.py's structured
   world: the pose within 0.02 m / 5e-3 rad of the reference's (the bounds
-  that test holds the reference to against the truth) and the accepted
-  residual count within 10% of its. No tighter bound holds: the plane fit
-  solves A n = -1 (5 points some 15 m out, a few cm apart) by adjugate in
-  float32, which is ill-conditioned there; the two packages round its sums
-  in different orders, and the fit's 0.2 m residual test then passes
-  different planes (99 against the reference's 111 at the identity pose;
-  the same fit in float64 passes 397);
+  that test holds the reference to against the truth). The plane fit
+  solves A n = -1 (5 points some 15 m out, a few cm apart) by adjugate,
+  which is ill-conditioned there: the reference's float32 fit loses about
+  half of the world's planes to rounding (its 0.2 m residual test fails
+  them), the port's float64 fit (F5) keeps them, so the port accepts at
+  least the reference's residual count and 95% of all (every query lies on
+  its plane or line);
 - the fused engines with a mesh against the port without one: LO within
   1e-5 (LO never touches the mesh), MO within 0.01 m, as
   tests/test_mesh_fused.py holds the reference's mesh engine to its single
@@ -134,7 +134,12 @@ def test_sharded_map_alignment_matches_jax(mesh, jmesh, rng):
     np.testing.assert_allclose(xt[4:], xj[4:], atol=0.02)
     assert (R.from_quat(xt[:4]).inv() * R.from_quat(xj[:4])).magnitude() \
         < 5e-3
-    assert abs(float(ct[0]) - float(cj[0])) <= 0.1 * float(cj[0]), (ct, cj)
+    # the port fits planes in float64 (F5); the reference's float32 fit
+    # loses about half of this world's planes to rounding. Every query lies
+    # on its plane or line: the port accepts nearly all of them, and at
+    # least the residuals the reference accepts.
+    n = len(c_stack) + len(s_stack)
+    assert float(cj[0]) <= float(ct[0]) and float(ct[0]) >= 0.95 * n, (ct, cj)
     np.testing.assert_allclose(xt[4:], t_true, atol=0.02)
 
 

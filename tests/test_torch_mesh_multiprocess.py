@@ -7,8 +7,9 @@ holds: the same shard_batch blocks, map rows and edge shards.
 - sharded_map_alignment on tests/test_sharded_mapping.py's structured world:
   the pose within 0.02 m / 5e-3 rad of the reference's (see
   tests/test_torch_mesh.py for why no tighter bound holds against it), the
-  ranks' accepted counts summing to the port's one-rank count exactly and
-  each within 10% of the reference's device's; the pose within 1e-4 of the
+  ranks' accepted counts summing to the port's one-rank count exactly,
+  each 95% of its block's residuals or more (the port's float64 plane fit,
+  F5) and together at least the reference's; the pose within 1e-4 of the
   port's one-rank run.
 - LoamEngine(mesh=) over a 6-frame drive (2^15 buckets, 512 window rows a
   rank) against the JAX mesh engine: LO 1e-3 m, MO 1e-2 m (the bounds of the
@@ -132,7 +133,12 @@ def test_sharded_map_alignment_ranks(D, tmp_path):
     np.testing.assert_allclose(x[4:], xj[4:], atol=0.02)
     assert (R.from_quat(x[:4]).inv() * R.from_quat(xj[:4])).magnitude() \
         < 5e-3
-    assert (np.abs(counts - cj) <= 0.1 * cj).all(), (counts, cj)
+    # each rank accepts nearly all of its block's residuals (the port's
+    # float64 plane fit, F5; the reference's float32 fit loses about half of
+    # them) and, over the ranks, at least what the reference accepts
+    per_rank = (len(cs) + len(ss)) / D
+    assert (counts >= 0.95 * per_rank).all() and counts.sum() >= cj.sum(), (
+        counts, cj)
 
 
 @pytest.mark.parametrize("D", SIZES)

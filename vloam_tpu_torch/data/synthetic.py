@@ -4,8 +4,10 @@ renderer (host-side numpy).
 The urban and highway scenes, LiDAR and camera parts of
 vloam_tpu/data/synthetic.py, with
 the same arithmetic, so the same seeds give bit-identical scans and images
-(tests/test_torch_loam_engine.py and tests/test_torch_vision.py hold the two
-equal). The port keeps its own copy so that it, and
+(tests/test_torch_loam_engine.py, tests/test_torch_vision.py and
+tests/test_torch_eval.py hold the two equal). A scan casts its rays only
+against what lies within the sensor's range (_within_range), which returns
+the same points. The port keeps its own copy so that it, and
 chip_smoke.py, import nothing of the JAX package.
 
 The scene is a ground plane, building boxes (planes -> surf features) and
@@ -16,6 +18,7 @@ y down (KITTI cam0).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -174,6 +177,23 @@ def _sensor_rays(n_scans: int, n_azimuth: int) -> np.ndarray:
                     axis=-1).reshape(-1, 3)
 
 
+def _within_range(scene: Scene, origin: np.ndarray) -> Scene:
+    """The scene without the boxes and poles that lie more than max_range +
+    1 m from `origin`. A ray from there meets them no nearer, and a scan
+    keeps only returns inside max_range, so its returns are those of the
+    whole scene, bit for bit, at a fraction of the ray tests on a wide
+    world (the long drive's buildings line 600 m of road)."""
+    reach = scene.max_range + 1.0
+    b = scene.boxes
+    gap = np.maximum(np.maximum(b[:, [0, 2, 4]] - origin,
+                                origin - b[:, [1, 3, 5]]), 0.0)
+    p = scene.poles
+    return dataclasses.replace(
+        scene, boxes=b[np.sqrt((gap * gap).sum(axis=1)) <= reach],
+        poles=p[np.hypot(p[:, 0] - origin[0], p[:, 1] - origin[1]) - p[:, 2]
+                <= reach])
+
+
 def simulate_scan(scene: Scene, T_world_sensor: np.ndarray, n_scans: int = 64,
                   n_azimuth: int = 1800, noise: float = 0.01,
                   seed: int = 0) -> np.ndarray:
@@ -185,7 +205,8 @@ def simulate_scan(scene: Scene, T_world_sensor: np.ndarray, n_scans: int = 64,
     R = T_world_sensor[:3, :3]
     t = T_world_sensor[:3, 3]
     dw = d @ R.T
-    rngs = _ray_scene_range(np.broadcast_to(t, dw.shape), dw, scene)
+    rngs = _ray_scene_range(np.broadcast_to(t, dw.shape), dw,
+                            _within_range(scene, t))
     hit = np.isfinite(rngs) & (rngs < scene.max_range)
     rngs = np.where(hit, rngs, 0.0)
     if noise > 0:
@@ -204,7 +225,8 @@ def simulate_scan_polar(scene: Scene, T_world_sensor: np.ndarray,
     d = _sensor_rays(n_scans, n_azimuth)
     R = T_world_sensor[:3, :3]
     t = T_world_sensor[:3, 3]
-    rngs = _ray_scene_range(np.broadcast_to(t, d.shape), d @ R.T, scene)
+    rngs = _ray_scene_range(np.broadcast_to(t, d.shape), d @ R.T,
+                            _within_range(scene, t))
     hit = np.isfinite(rngs) & (rngs < scene.max_range)
     if noise > 0:
         rngs = rngs + np.where(hit, rng.normal(0, noise, rngs.shape), 0.0)

@@ -4,7 +4,8 @@ laser_mapping.cpp).
 The reference's cube array, per-cube VoxelGrid and KdTreeFLANN 5-NN are one
 structure here, the hashed cell-slab map (gridmap.py). The line test uses
 the closed-form 3x3 eigensolver, the plane fit a 3x3 normal-equation solve
-by adjugate, and the pose refinement the shared Huber-IRLS LM.
+by adjugate (in float64, where the reference's is float32: see
+surf_geometry), and the pose refinement the shared Huber-IRLS LM.
 
 Nothing in solve_mapping reads a device value back to the host: the
 "enough map" gate and the recentering evict are ``torch.where`` selects over
@@ -124,8 +125,16 @@ def surf_fit(p_w, stack_mask, cand, cfg):
 
 def surf_geometry(stack_mask, d, near, cfg):
     """Plane features (n_hat, 1/|n|, valid) from each query's k nearest map
-    points, as corner_geometry takes them."""
+    points, as corner_geometry takes them.
+
+    The fit runs in float64 and rounds its outputs to float32. The k points
+    lie within a metre of each other but up to hundreds of metres from the
+    world origin, so A^T A is nearly of rank one; the reference solves it in
+    float32, where the normal's direction is lost to rounding more and more
+    as the drive leaves the origin. That was most of MO's error on long
+    drives, in the reference on the CPU as in the port (PERF.md, F5)."""
     ok = stack_mask & (d[:, cfg.knn - 1] < cfg.neighbor_radius_sq)
+    near = near.to(torch.float64)
     AtA = _gram(near)
     Atb = -torch.sum(near, dim=2).T  # [Q, 3] = A^T * (-1)
     # closed-form 3x3 solve via adjugate; det by the 6-term rule of
@@ -150,7 +159,7 @@ def surf_geometry(stack_mask, d, near, cfg):
                       + nood[:, None])
     plane_ok = torch.all(resid <= cfg.plane_fit_tolerance, dim=-1)
     valid = ok & plane_ok & (torch.abs(det) > 1e-12) & (norm > _EPS)
-    return n_hat, nood, valid
+    return n_hat.to(torch.float32), nood.to(torch.float32), valid
 
 
 def _retract(x, delta):
