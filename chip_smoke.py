@@ -45,7 +45,11 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      which no engine launches, are counted on this path
   5. end to end: LoamEngine(kitti_hdl64(), chunk=16, device="cuda") over the
      drive; frames/s, kernel launch counts, MO error against ground truth,
-     no host sync in the timed frames
+     no host sync in the timed frames; then, after the launch counts were
+     read, a counting pass over the drive (tools/work.count_frames): the
+     timed frames' operations and bytes a frame, their bound on an H100 and
+     the share of it the phase's frames/s reaches (it fails on a count that
+     is not positive or a share over 1)
   6. the first 6 frames again on the CPU (plain versions): trajectories agree
   7. K3 zncc_describe vs its plain version on keypoints of rendered frames
      plus crafted rows (image corners, a constant patch), p = 24 and 16, and
@@ -189,8 +193,9 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         0 degraded frames; crossings, each map grid's live slots and full
         buckets at the end, frames/s
   B. vloam_tpu_torch.tools.bench (the port's bench.py) at 16 frames a
-     window: its line parses, with bench.py's keys and the port's, finite
-     numbers and the card's name
+     window: its line parses, with bench.py's keys (the roofline keys
+     among them, a share in (0, 1]) and the port's, finite numbers and the
+     card's name
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -297,11 +302,6 @@ def warm_up(seconds: float = 3.0) -> None:
     del a, b
     print(f"[warm-up] {seconds:.0f} s of 4096^2 matmuls {clocks()}",
           flush=True)
-
-
-def io_bytes(*tensors) -> int:
-    """Bytes of the given inputs and outputs, each counted once."""
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, bound,
@@ -481,10 +481,10 @@ def k1_phase(cfg, ff) -> dict:
     plain_ms = timing.device_ms(
         lambda: sr.select_rings_plain(curv, bf, counts, cfg.scanreg), runs=5,
         cold=False)
-    # each input and the labels once; per ring 2 x 24 rounds of one compare
-    # per point (the sector's running extremum)
-    bound = timing.bound_ms(io_bytes(curv, bf, counts, got),
-                            2 * 24 * curv.numel())
+    # tools/work.select_rings: curv, bf and the labels once a point, the
+    # counts once a ring; 2 x 24 pick rounds of one compare a point
+    bound = timing.select_rings_bound(curv.numel(), curv.shape[0],
+                                      cfg.scanreg)
     print(f"[3 K1 select_rings] {len(ff)} frames [64,{N_AZ}] labels "
           f"identical ({n_lab} labelled), and on {len(cases)} crafted cases ("
           + ", ".join(c.name for c in cases) + f"); kernel {ms * 1e3:.1f} us "
@@ -676,17 +676,23 @@ def bench_phase(card: str, frames, images) -> None:
             "window_rates", "window_frames", "fence_ms",
             "device_ms_per_frame", "upload_mbps", "upload_ms_per_frame",
             "device", "host_cpu", "combined_fps", "combined_vs_baseline",
-            "combined_fps_median", "pose_graph_gn_iters_per_sec"}
+            "combined_fps_median", "pose_graph_gn_iters_per_sec",
+            "flops_per_frame", "hbm_bytes_per_frame", "device_kind",
+            "power_limit_w", "hbm_util", "flop_util", "roofline_bound"}
     print(f"[B bench] tools/bench.run at 16 frames a window "
           f"({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}",
           flush=True)
-    if set(rec) != keys or rec["device"] != card:
+    if set(rec) != keys or rec["device"] != card or not card.startswith(
+            rec["device_kind"]):
         fail(f"the bench line's keys {sorted(rec)} or device "
              f"{rec.get('device')}")
     if not all(np.isfinite(rec[k]) and rec[k] > 0 for k in (
             "value", "combined_fps", "pose_graph_gn_iters_per_sec",
-            "device_ms_per_frame", "upload_mbps")):
+            "device_ms_per_frame", "upload_mbps", "flops_per_frame",
+            "hbm_bytes_per_frame", "power_limit_w")):
         fail(f"the bench line's numbers: {rec}")
+    if not 0 < max(rec["hbm_util"], rec["flop_util"]) <= 1.0:
+        fail(f"the bench line's roofline share: {rec}")
 
 
 def _sync_free(push, ks):
@@ -715,7 +721,7 @@ def lidar_launches(n: int, **more) -> dict:
             "zncc_describe": 0, "ring_argmin2": 0, "masked_knn": 0, **more}
 
 
-def e2e_phase(cfg, frames, poses):
+def e2e_phase(cfg, frames, poses, card):
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar.loam_step import LoamEngine, unpack_outputs
 
@@ -759,7 +765,41 @@ def e2e_phase(cfg, frames, poses):
         fail(f"the frame loop synchronized with the device: {syncs[:3]}")
     if not err < 0.15:
         fail(f"MO error {err} m >= 0.15 m")
+    roofline_phase(cfg, frames, fps, card)
     return res, eng, outs
+
+
+def roofline_phase(cfg, frames, fps, card) -> None:
+    """The roofline of phase 5's timed frames: a counting pass over the
+    drive (tools/work.count_frames, untimed, after the launch counts were
+    read) gives each frame's live counts; the mean work of frames
+    CHUNK..N_FRAMES-1, the bound of an H100 for it and the share of that
+    bound phase 5's frames/s reaches. Fails on a count that is not positive
+    or a share over 1, which no card can give: a fault in the count."""
+    from vloam_tpu_torch.tools import bench, timing
+
+    t0 = time.perf_counter()
+    w = bench.frame_work(cfg, frames[:N_FRAMES], "cuda", CHUNK)
+    r = timing.roofline(w["ops"], w["ops_f64"], w["bytes"], fps)
+    share = max(r["hbm_util"], r["flop_util"])
+    print(f"[5 roofline] frames {CHUNK}-{N_FRAMES - 1} (counting pass "
+          f"{time.perf_counter() - t0:.1f} s): {w['ops']:.6g} float32 and "
+          f"{w['ops_f64']:.6g} float64 operations, {w['bytes']:.6g} bytes a "
+          f"frame; bound {r['bound_ms'] * 1e3:.3f} us a frame by "
+          f"{r['roofline_bound']}; share {share:.4g} at {fps:.2f} frames/s "
+          f"(hbm_util {r['hbm_util']:.4g}, flop_util {r['flop_util']:.4g}); "
+          "by stage (ops, bytes in + out): " + ", ".join(
+              f"{n} {st['ops'] + st['ops_f64']:.4g}, "
+              f"{st['bytes_in'] + st['bytes_out']:.4g}"
+              for n, st in w["stages"].items())
+          + f"; {card}", flush=True)
+    if not (w["ops"] > 0 and w["ops_f64"] > 0 and w["bytes"] > 0
+            and all(st["bytes_in"] + st["bytes_out"] > 0
+                    for st in w["stages"].values())):
+        fail(f"a count of the frame's work is not positive: {w}")
+    if not 0 < share <= 1.0:
+        fail(f"the roofline share {share} is not in (0, 1]: a fault in the "
+             "count")
 
 
 def cpu_phase(cfg, frames, res_gpu) -> None:
@@ -2681,7 +2721,7 @@ def main() -> None:
     (k2, s1_min1, packed, err_argmin2), shapes = ring_phase(ff)
     launches_assoc = assoc_phase(shapes)
     del ff, shapes
-    res_gpu, eng, outs_gpu = e2e_phase(cfg, frames, poses)
+    res_gpu, eng, outs_gpu = e2e_phase(cfg, frames, poses, card)
     cpu_phase(cfg, frames, res_gpu)
     k3 = k3_phase(cfg_v, images)
     res_v, launches_v, grid_line = vloam_phase(cfg_v, frames, images, poses,

@@ -1,7 +1,8 @@
 """vloam_tpu_torch.tools.bench, the port's counterpart of bench.py, run on
 the CPU at the tiny test profile with a few frames a window: the line has
 bench.py's keys and the port's (the card, the host CPU, the combined
-engine's frames/s, the pose graph's Gauss-Newton steps a second), its
+engine's frames/s, the pose graph's Gauss-Newton steps a second; of the
+roofline keys the two counts and the device, with no roofline_error), its
 numbers are finite and positive and no part reports a failure; cached
 frames are read back, and other parameters miss the cache. Asking for the
 card where there is none raises."""
@@ -23,7 +24,8 @@ KEYS = {"metric", "value", "unit", "vs_baseline", "value_median",
         "window_rates", "window_frames", "fence_ms", "device_ms_per_frame",
         "upload_mbps", "upload_ms_per_frame", "device", "host_cpu",
         "combined_fps", "combined_vs_baseline", "combined_fps_median",
-        "pose_graph_gn_iters_per_sec"}
+        "pose_graph_gn_iters_per_sec", "flops_per_frame",
+        "hbm_bytes_per_frame", "device_kind"}
 
 
 def _run(**kw):
@@ -46,6 +48,10 @@ def test_bench_line_on_the_cpu(monkeypatch, tmp_path):
               "combined_fps_median", "pose_graph_gn_iters_per_sec"):
         assert math.isfinite(rec[k]) and rec[k] >= 0, k
     assert rec["value"] > 0 and rec["combined_fps"] > 0
+    # the roofline counts: on the CPU the two counts and the device alone
+    assert rec["device_kind"] == "cpu"
+    for k in ("flops_per_frame", "hbm_bytes_per_frame"):
+        assert math.isfinite(rec[k]) and rec[k] > 0, k
     cached = sorted(p.name for p in tmp_path.iterdir()
                     if p.name.startswith("vloam_torch_bench_"))
     assert len(cached) == 2, cached  # the range images and the images

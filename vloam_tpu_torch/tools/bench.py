@@ -27,8 +27,20 @@ temporary directory (tempfile.gettempdir()), keyed by their parameters.
 Runs on the card unless --device cpu; a CPU run times PyTorch's CPU
 kernels and names "cpu" as its device.
 
-Not here: bench.py's roofline share, which reads XLA's compiled cost
-analysis; the port has no counterpart of it (ROADMAP).
+The roofline keys, bench.py's _roofline's counterpart: a counting pass
+after the timed windows and the device_ms_per_frame chunks runs the first
+window's frames once more, untimed, from a fresh engine state
+(tools/work.count_frames) and reads each frame's live counts;
+flops_per_frame and hbm_bytes_per_frame are the mean per frame of
+tools/work.frame_work over them (operations summed over the frame's stages,
+float32 and float64; the bytes the frame itself must read and write),
+device_kind and power_limit_w the card's nvidia-smi name and limit
+("cpu" and no limit on the CPU). On an H100 the line adds hbm_util =
+hbm_bytes_per_frame x value / 3.35e12, flop_util = (float32 operations /
+67e12 + float64 operations / 34e12) x value and roofline_bound, the larger
+of the two ("bytes" or "operations"): the share of the card's roofline that
+the measured frames/s reaches. A failure of the count goes into the line as
+roofline_error.
 """
 
 from __future__ import annotations
@@ -114,6 +126,33 @@ def card_name(device: torch.device) -> str:
     from .timing import card_line
 
     return card_line()
+
+
+def roofline(w: dict, fps: float, card: str) -> dict:
+    """The roofline keys of a frame's mean work w (tools/work.mean_work) at
+    fps frames a second on the device `card` names (card_name's line): the
+    utilisations only on an H100, whose peaks tools/timing.py holds."""
+    from .timing import roofline as shares
+
+    name, _, limit = card.partition(", ")
+    out = {"flops_per_frame": w["ops"] + w["ops_f64"],
+           "hbm_bytes_per_frame": w["bytes"], "device_kind": name}
+    if limit:
+        out["power_limit_w"] = float(limit.split()[0])
+    if "H100" in name:
+        r = shares(w["ops"], w["ops_f64"], w["bytes"], fps)
+        out.update(hbm_util=r["hbm_util"], flop_util=r["flop_util"],
+                   roofline_bound=r["roofline_bound"])
+    return out
+
+
+def frame_work(cfg, frames, device, warm: int) -> dict:
+    """The mean work a frame of frames[warm:] (tools/work.mean_work), from a
+    counting pass over all of frames from a fresh engine state."""
+    from . import work
+
+    counts = work.count_frames(cfg, frames, device)
+    return work.mean_work([work.frame_work(cfg, c) for c in counts[warm:]])
 
 
 def host_cpu() -> str:
@@ -269,13 +308,14 @@ def run(device="cuda", cfg=None, n_azimuth: int = 1800, chunk: int = 16,
         warm: int = 16, window: int = 96, windows: int = 3,
         combined: tuple[int, int] = (8, 32), n_poses: int = 256,
         workers: int | None = None, frames=None, images=None) -> dict:
-    """The JSON record: bench.py's keys, the card, the host CPU, the
-    combined engine's frames/s and the pose graph's Gauss-Newton steps a
-    second. The defaults are bench.py's sizes; cfg defaults to
-    kitti_hdl64(). combined: (chunk and warm-up frames, window frames).
-    frames, images: the drive's first warm + window range images and first
-    sum(combined) camera images (uint8), where the caller has them already;
-    otherwise they are generated (or read from the cache)."""
+    """The JSON record: bench.py's keys (the roofline keys as the module
+    docstring says), the card, the host CPU, the combined engine's frames/s
+    and the pose graph's Gauss-Newton steps a second. The defaults are
+    bench.py's sizes; cfg defaults to kitti_hdl64(). combined: (chunk and
+    warm-up frames, window frames). frames, images: the drive's first warm
+    + window range images and first sum(combined) camera images (uint8),
+    where the caller has them already; otherwise they are generated (or
+    read from the cache)."""
     from ..config import kitti_hdl64
     from ..data import synthetic
     from ..lidar.loam_step import engine_device
@@ -294,6 +334,11 @@ def run(device="cuda", cfg=None, n_azimuth: int = 1800, chunk: int = 16,
     rec = {"device": card_name(device), "host_cpu": host_cpu()}
     rec.update(bench_lidar(cfg, frames, device, chunk, warm, window,
                            windows))
+    try:  # after every timed window: the counting pass reads the device
+        rec.update(roofline(frame_work(cfg, frames[:warm + window], device,
+                                       warm), rec["value"], rec["device"]))
+    except Exception as e:  # reported in the line, not dropped
+        rec["roofline_error"] = repr(e)
     c_chunk, c_window = combined
     try:
         w, h = cfg.vo.img_width, cfg.vo.img_height

@@ -24,8 +24,11 @@ import subprocess
 
 import torch
 
+from . import work
+
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+H100_FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores
 # instruction issue: 132 SMs x 4 schedulers x 32 lanes, one warp instruction
 # a scheduler a clock, at the H100 SXM's 1980 MHz maximum SM clock
 H100_LANES = 132 * 4 * 32
@@ -109,47 +112,60 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
                                                           "operations")
 
 
+def select_rings_bound(n_points: int, n_rings: int,
+                       scanreg) -> tuple[float, str]:
+    """work.select_rings: K1 over n_points ring slots of n_rings rings."""
+    return _bound(work.select_rings(n_points, n_rings, scanreg))
+
+
 def row_gather_bound(n_rows: int, width: int,
                      n_unique: int) -> tuple[float, str]:
-    """Each of the n_unique distinct float32 rows that the indices name read
-    once, each of the n_rows output rows written once, each int64 index read
-    once; no arithmetic."""
-    return bound_ms((n_unique + n_rows) * width * 4 + n_rows * 8, 0)
+    """work.row_gather's bytes: each distinct row read once, each output row
+    and index once."""
+    return _bound(work.row_gather(n_rows, width, n_unique))
 
 
 def grid_probe_bound(jobs) -> tuple[float, str]:
-    """S2's map probe, jobs of (Q queries, bucket capacity cap, distinct
-    bucket rows probed): per job each distinct float32 row of 3*cap read
-    once, the [3, Q, 8*cap] candidates written once, the [Q, 3] queries
-    read once. The hashing (~110 integer and float operations a query) is
-    below a thousandth of the bytes' time and not counted."""
-    return bound_ms(sum(4 * (rows * 3 * cap + Q * 24 * cap + 3 * Q)
-                        for Q, cap, rows in jobs), 0)
+    """work.grid_probe's bytes and hashes, jobs of (Q queries, bucket
+    capacity cap, distinct bucket rows probed)."""
+    return _bound(work.grid_probe(jobs))
 
 
 def ring_reduce_bound(Q: int, S: int, C: int, n_out: int) -> tuple[float, str]:
-    """Per (ring, query, slot) pair 3 subtractions, 3 products and 2 sums,
-    and one compare per minimum kept; queries and slabs read once, n_out
-    [S, Q] 4-byte outputs written once."""
-    ops = S * Q * C * (8 + n_out // 2)
-    return bound_ms(Q * 12 + S * 3 * C * 4 + n_out * S * Q * 4, ops)
+    """work.ring_reduce over every (ring, query, slot) pair: n_out [S, Q]
+    4-byte outputs."""
+    return _bound(work.ring_reduce(Q, S, C, n_out))
 
 
 def zncc_bound(K: int, p: int, H: int, W: int) -> tuple[float, str]:
-    """K3: the [H, W] image, the [K, 2] keypoints and the [K, p*p]
-    descriptors once, all float32; per descriptor element 5 operations (an
-    add for the mean, a subtract, a multiply and an add for the centred
-    norm, the multiply that scales it)."""
-    n_desc = K * p * p
-    return bound_ms(4 * (H * W + 2 * K + n_desc), 5 * n_desc)
+    """work.zncc: K3's image, keypoints and descriptors once, 5 operations
+    a descriptor element."""
+    return _bound(work.zncc(K, p, H, W))
 
 
 def knn_bound(Q: int, C: int, k: int) -> tuple[float, str]:
-    """lidar/knn.masked_knn of Q queries against C candidates: 3 fused
-    multiply-adds (6 operations) a pair for q.c; the [Q, 3] queries, the
-    [C, 3] candidates and their [C] mask read once, the [Q, k] float32
-    distances and int64 indices written once."""
-    return bound_ms(Q * 12 + C * 13 + Q * k * 12, 6 * Q * C)
+    """work.knn: lidar/knn.masked_knn of Q queries against C candidates,
+    every pair."""
+    return _bound(work.knn(Q, C, k))
+
+
+def _bound(ops_bytes: tuple[int, int]) -> tuple[float, str]:
+    """bound_ms of work.py's (operations, bytes)."""
+    return bound_ms(ops_bytes[1], ops_bytes[0])
+
+
+def roofline(ops: float, ops_f64: float, n_bytes: float,
+             fps: float) -> dict:
+    """A frame's roofline on an H100 at fps frames a second: hbm_util, the
+    bytes' share of the memory rate; flop_util, the float32 operations'
+    share of the float32 rate plus the float64 operations' of the float64
+    rate; roofline_bound, the larger of the two ("bytes" or "operations");
+    bound_ms, the least time a frame could take (the larger share's time)."""
+    hbm = n_bytes * fps / H100_BYTES_PER_S
+    flop = (ops / H100_FP32_OPS_PER_S + ops_f64 / H100_FP64_OPS_PER_S) * fps
+    return {"hbm_util": hbm, "flop_util": flop,
+            "roofline_bound": "bytes" if hbm >= flop else "operations",
+            "bound_ms": max(hbm, flop) / fps * 1e3}
 
 
 def knn_issue_floor(Q: int, C: int, per_pair: float) -> float:
