@@ -78,6 +78,14 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      row_gather vs table[idx] (bit-identical) and torch.index_select on the
      two insert gathers of each of those frames (2048 and 6144 rows, 4x in
      the batch) and at [2^17, 96] x 65536 random
+  P. pack12 on the card: the first 8 range images of phases 5 and 8 and
+     of phase 10's 4 streams requantized to 3 cm (round(r x 0.005 / 0.03),
+     clipped at 4095), through LoamEngine, VloamEngine and BatchLoamEngine
+     at chunk 4 with pack12 on and off: rows identical, each hand kernel's
+     launches identical and as phases 5, 8 and 10 count them a frame; the
+     batch engine's pack12 rows of the first 2 lockstep frames of 2 streams
+     on the CPU within phase 11's bounds; MO max error against ground truth
+     at 3 cm beside the 5 mm runs' (printed, not gated); the phase's seconds
   12. the ring-variants measurement entry point (ring_argmin2's path): its
      check against the plain version and its times, beside ring_argmin2's
      before its redesign
@@ -193,9 +201,11 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         0 degraded frames; crossings, each map grid's live slots and full
         buckets at the end, frames/s
   B. vloam_tpu_torch.tools.bench (the port's bench.py) at 16 frames a
-     window: its line parses, with bench.py's keys (the roofline keys
-     among them, a share in (0, 1]) and the port's, finite numbers and the
-     card's name
+     window, its batch part (scripts/bench_extras.py's streams, uint16 at
+     5 mm and pack12 at 3 cm) on 4 streams at chunk 4 and 4 lockstep frames
+     a window: its line parses, with bench.py's keys (the roofline keys
+     among them, a share in (0, 1]) and the port's (the batch keys among
+     them, both modes' rates > 0), finite numbers and the card's name
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -242,6 +252,7 @@ BATCH_CPU = (2, 2)  # streams, lockstep frames of the card-vs-CPU check
 # tests/test_batch_engine.py), and against its own CPU run (as phase 6)
 BATCH_SINGLE_TOL = {"LO": 1e-3, "MO": 1e-2}
 BATCH_CPU_TOL = {"LO": 2e-2, "MO": 3e-2}
+PACK_FRAMES = 8  # frames (lockstep frames) of each phase-P run
 N_AZ = 1800
 CPU_FRAMES = 6
 IMG_W, IMG_H = 1242, 375
@@ -663,25 +674,30 @@ def assoc_phase(shapes) -> dict:
 
 def bench_phase(card: str, frames, images) -> None:
     """vloam_tpu_torch.tools.bench at a few frames a window on the drive's
-    frames (bench.py's drive: the same scene, trajectory and seeds): its
-    line parses and holds bench.py's keys and the port's, with finite
-    numbers."""
+    frames (bench.py's drive: the same scene, trajectory and seeds), the
+    batch part on 4 streams of bench_extras.bench_batch's drives at chunk 4
+    and 4 lockstep frames a window: its line parses and holds bench.py's
+    keys and the port's, with finite numbers."""
     from vloam_tpu_torch.tools import bench
 
     t0 = time.perf_counter()
     rec = json.loads(json.dumps(bench.run(
-        "cuda", window=16, windows=3, combined=(8, 8), n_poses=256,
-        frames=frames[:32], images=images[:16])))
+        "cuda", window=16, windows=3, combined=(8, 8),
+        batch=(BATCH, BATCH_CHUNK, 4), n_poses=256, frames=frames[:32],
+        images=images[:16])))
     keys = {"metric", "value", "unit", "vs_baseline", "value_median",
             "window_rates", "window_frames", "fence_ms",
             "device_ms_per_frame", "upload_mbps", "upload_ms_per_frame",
             "device", "host_cpu", "combined_fps", "combined_vs_baseline",
             "combined_fps_median", "pose_graph_gn_iters_per_sec",
             "flops_per_frame", "hbm_bytes_per_frame", "device_kind",
-            "power_limit_w", "hbm_util", "flop_util", "roofline_bound"}
-    print(f"[B bench] tools/bench.run at 16 frames a window "
-          f"({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}",
-          flush=True)
+            "power_limit_w", "hbm_util", "flop_util", "roofline_bound",
+            "batch_streams", "batch_fps", "batch_fps_median",
+            "batch_pack12_fps", "batch_pack12_fps_median"}
+    print(f"[B bench] tools/bench.run at 16 frames a window, the batch "
+          f"engine's {BATCH} streams at chunk {BATCH_CHUNK} and 4 lockstep "
+          f"frames a window ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(rec)}", flush=True)
     if set(rec) != keys or rec["device"] != card or not card.startswith(
             rec["device_kind"]):
         fail(f"the bench line's keys {sorted(rec)} or device "
@@ -689,7 +705,9 @@ def bench_phase(card: str, frames, images) -> None:
     if not all(np.isfinite(rec[k]) and rec[k] > 0 for k in (
             "value", "combined_fps", "pose_graph_gn_iters_per_sec",
             "device_ms_per_frame", "upload_mbps", "flops_per_frame",
-            "hbm_bytes_per_frame", "power_limit_w")):
+            "hbm_bytes_per_frame", "power_limit_w", "batch_fps",
+            "batch_fps_median", "batch_pack12_fps",
+            "batch_pack12_fps_median")) or rec["batch_streams"] != BATCH:
         fail(f"the bench line's numbers: {rec}")
     if not 0 < max(rec["hbm_util"], rec["flop_util"]) <= 1.0:
         fail(f"the bench line's roofline share: {rec}")
@@ -1126,6 +1144,139 @@ def batch_cpu_phase(cfg, streams, outs_gpu) -> None:
           + f" (CPU run {time.perf_counter() - t0:.1f} s)", flush=True)
     if any(not diff[w] < BATCH_CPU_TOL[w] for w in diff):
         fail("card and CPU trajectories of the batch engine disagree")
+
+
+def requantize(img: np.ndarray, scale: float) -> np.ndarray:
+    """A 5 mm range image in `scale`-metre units, clipped at 4095 (12
+    bits)."""
+    return np.minimum(np.round(img * (0.005 / scale)), 4095).astype(np.uint16)
+
+
+def _pack_pair(make, push, n: int) -> tuple[dict, dict]:
+    """Rows and hand-kernel launches of the engine make(pack12) over push(
+    engine, k) for k < n, with pack12 on (True) and off (False)."""
+    from vloam_tpu_torch import kernels
+
+    rows, launches = {}, {}
+    for packed in (True, False):
+        eng = make(packed)
+        kernels.reset_launches()
+        for k in range(n):
+            push(eng, k)
+        rows[packed] = eng.finish()
+        launches[packed] = dict(kernels.LAUNCHES)
+    return rows, launches
+
+
+def _mo_err(t_w_mo, poses) -> float:
+    gt = np.stack([T[:3, 3] for T in poses])
+    return float(np.linalg.norm(t_w_mo - gt, axis=1).max())
+
+
+def pack12_phase(cfg, cfg_v, frames, images, poses, calib, streams,
+                 stream_poses, res5, res8, outs10) -> None:
+    """P: pack12 on the card. Phase 5's and 8's range images and phase 10's
+    streams requantized to 3 cm through LoamEngine, VloamEngine and
+    BatchLoamEngine with pack12 on and off: rows identical (the staging is
+    exact) and each hand kernel launched as often; the batch engine's pack12
+    rows against the CPU's; MO error against ground truth beside the 5 mm
+    runs' (printed, not gated)."""
+    from vloam_tpu_torch.lidar.loam_step import (BatchLoamEngine, LoamEngine,
+                                                 unpack_outputs)
+    from vloam_tpu_torch.tools.bench import PACK12_SCALE as sc
+    from vloam_tpu_torch.vloam_step import VloamEngine, unpack_vloam_outputs
+
+    t0 = time.perf_counter()
+    n = PACK_FRAMES
+    q = [requantize(f, sc) for f in frames[:n]]
+    qs = [[requantize(f, sc) for f in st[:n]] for st in streams]
+
+    def push_batch(eng, k):
+        for b in range(BATCH):
+            eng.push_polar(b, qs[b][k], range_scale=sc)
+
+    runs = {
+        "LoamEngine": _pack_pair(
+            lambda p: LoamEngine(cfg, chunk=BATCH_CHUNK, pack12=p,
+                                 device="cuda"),
+            lambda e, k: e.push_polar(q[k], range_scale=sc), n),
+        "VloamEngine": _pack_pair(
+            lambda p: VloamEngine(cfg_v, calib, chunk=BATCH_CHUNK, pack12=p,
+                                  device="cuda"),
+            lambda e, k: e.push_polar(q[k], images[k], range_scale=sc), n),
+        "BatchLoamEngine": _pack_pair(
+            lambda p: BatchLoamEngine(cfg, BATCH, chunk=BATCH_CHUNK,
+                                      pack12=p, device="cuda"),
+            push_batch, n),
+    }
+    want = {"LoamEngine": ((n, 24), lidar_launches(n)),
+            "VloamEngine": ((n, 33), lidar_launches(n, zncc_describe=n)),
+            "BatchLoamEngine": ((BATCH, n, 24), lidar_launches(
+                BATCH * n, row_gather=2 * n, grid_probe=n))}
+    for name, (rows, launches) in runs.items():
+        shape, counts = want[name]
+        if rows[True].shape != shape or not np.isfinite(rows[True]).all():
+            fail(f"P: {name}'s pack12 rows {rows[True].shape} are not "
+                 f"{shape} finite rows")
+        if not np.array_equal(rows[True], rows[False]):
+            fail(f"P: {name}'s pack12 rows differ from its uint16 rows by "
+                 f"{np.abs(rows[True] - rows[False]).max()}")
+        if not launches[True] == launches[False] == counts:
+            fail(f"P: {name}'s launches {launches[True]} with pack12, "
+                 f"{launches[False]} without, want {counts}")
+
+    # MO max error against ground truth: 3 cm (this phase) and 5 mm (the
+    # first n rows of phases 5, 8 and 10)
+    outs_b = runs["BatchLoamEngine"][0][True]
+    errs = {
+        "LoamEngine": (
+            _mo_err(unpack_outputs(runs["LoamEngine"][0][True])["t_w_mo"],
+                    poses[:n]),
+            _mo_err(res5["t_w_mo"][:n], poses[:n])),
+        "VloamEngine": (
+            _mo_err(unpack_vloam_outputs(runs["VloamEngine"][0][True],
+                                         calib)["t_w_mo"], poses[:n]),
+            _mo_err(res8["t_w_mo"][:n], poses[:n])),
+        "BatchLoamEngine": tuple(max(
+            _mo_err(unpack_outputs(o[b][:n])["t_w_mo"], stream_poses[b][:n])
+            for b in range(BATCH)) for o in (outs_b, outs10)),
+    }
+
+    # the batch engine's pack12 rows on the CPU
+    nb, nf = BATCH_CPU
+    t_cpu = time.perf_counter()
+    eng = BatchLoamEngine(cfg, nb, chunk=nf, pack12=True, device="cpu")
+    for k in range(nf):
+        for b in range(nb):
+            eng.push_polar(b, qs[b][k], range_scale=sc)
+    outs_cpu = eng.finish()
+    t_cpu = time.perf_counter() - t_cpu
+    diff = {"LO": 0.0, "MO": 0.0}
+    for b in range(nb):
+        res = unpack_outputs(outs_cpu[b])
+        ref = unpack_outputs(outs_b[b][:nf])
+        for w in diff:
+            key = f"t_w_{w.lower()}"
+            diff[w] = max(diff[w], float(np.abs(res[key] - ref[key]).max()))
+    print(f"[P pack12 on the card] phase 5's and 8's range images and phase "
+          f"10's {BATCH} streams requantized to {sc * 100:.0f} cm (clipped at "
+          f"4095), {n} frames at chunk {BATCH_CHUNK}: LoamEngine, VloamEngine "
+          f"and BatchLoamEngine rows identical with pack12 on and off; "
+          f"launches identical ("
+          + "; ".join(f"{k} {({c: m for c, m in v[1][True].items() if m})}"
+                      for k, v in runs.items())
+          + "); MO max err vs GT at 3 cm / at 5 mm (phases 5, 8, 10): "
+          + ", ".join(f"{k} {a:.4f} / {b:.4f} m" for k, (a, b) in
+                      errs.items())
+          + f"; batch pack12 card vs CPU, first {nf} lockstep frames of {nb} "
+          "streams: " + ", ".join(
+              f"{w} {d:.2e} m (bound {BATCH_CPU_TOL[w]:.0e})"
+              for w, d in diff.items())
+          + f" (CPU run {t_cpu:.1f} s); phase in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if any(not diff[w] < BATCH_CPU_TOL[w] for w in diff):
+        fail("P: card and CPU trajectories of the pack12 batch engine "
+             "disagree")
 
 
 def ring_variants_phase(err: float) -> dict:
@@ -2731,6 +2882,8 @@ def main() -> None:
     batch_cpu_phase(cfg, streams, outs_b)
     probe, s2 = s2_phase(eng, frames[N_FRAMES - 1], beng, streams)
     del eng, beng
+    pack12_phase(cfg, cfg_v, frames, images, poses, calib, streams,
+                 stream_poses, res_gpu, res_v, outs_b)
     s1_argmin2 = ring_variants_phase(err_argmin2)
     stats13 = profile_phase(cfg, cfg_v, frames, images, calib, streams)
     host_cli_phase(frames, poses, calib)

@@ -41,6 +41,21 @@ hbm_bytes_per_frame x value / 3.35e12, flop_util = (float32 operations /
 of the two ("bytes" or "operations"): the share of the card's roofline that
 the measured frames/s reaches. A failure of the count goes into the line as
 roofline_error.
+
+The batch keys, scripts/bench_extras.py::bench_batch's counterpart (its
+batch_loam_aggregate_frames_per_sec at pack12 false and true):
+BatchLoamEngine(kitti_hdl64(), 4, chunk=8, quantize_mm=5.0) over that
+script's 4 streams (batch_streams): stream b drives urban_scene(b,
+extent=80) along drive_trajectory(80, speed=1.1, yaw_rate=0.01 + 0.002 b),
+frame k seeded b * 1000 + k (the script's 32 frames are the first 32 of
+these), 8 lockstep warm-up frames, each pushed stream by stream, then three
+windows of 24 lockstep frames, each ended by a fresh
+torch.cuda.synchronize(). batch_fps and batch_fps_median are the best and
+the median window's aggregate frames/s (streams x lockstep frames / s) on
+uint16 range images at 5 mm; batch_pack12_fps and batch_pack12_fps_median
+the same on 3 cm images clipped at 4095 and staged as 12-bit pairs
+(pack12=True: packed on the host, unpacked on the device). A failure of
+either goes into the line as batch_error.
 """
 
 from __future__ import annotations
@@ -63,12 +78,16 @@ import torch
 _CACHE_VERSION = 1  # bump when the synthetic world code changes
 
 
+def _cache_path(key: str, params: tuple) -> Path:
+    tag = hashlib.sha1(repr((_CACHE_VERSION,) + params).encode()).hexdigest()
+    path = Path(tempfile.gettempdir()) / f"vloam_torch_bench_{key}_{tag[:12]}"
+    return path.with_suffix(".npz")
+
+
 def _cached(key: str, params: tuple, gen) -> list[np.ndarray]:
     """gen()'s arrays, cached in the temporary directory under a name that
     folds in every generation parameter."""
-    tag = hashlib.sha1(repr((_CACHE_VERSION,) + params).encode()).hexdigest()
-    path = Path(tempfile.gettempdir()) / f"vloam_torch_bench_{key}_{tag[:12]}"
-    path = path.with_suffix(".npz")
+    path = _cache_path(key, params)
     try:
         with np.load(path) as z:
             return [z[k] for k in z.files]
@@ -82,12 +101,14 @@ def _cached(key: str, params: tuple, gen) -> list[np.ndarray]:
 
 
 def _scan(args):
+    """A polar scan of urban_scene(scene, extent=80) from pose T in
+    range_scale-metre units."""
     from ..data import synthetic
 
-    T, k, n_scans, n_az = args
+    T, seed, n_scans, n_az, scene, range_scale = args
     return synthetic.simulate_scan_polar(
-        synthetic.urban_scene(0, extent=80.0), T, n_scans=n_scans,
-        n_azimuth=n_az, noise=0.01, seed=k)
+        synthetic.urban_scene(scene, extent=80.0), T, n_scans=n_scans,
+        n_azimuth=n_az, noise=0.01, seed=seed, range_scale=range_scale)
 
 
 def _image(args):
@@ -106,6 +127,45 @@ def _pool_map(fn, items, workers: int) -> list:
     with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
         return list(pool.map(fn, items))
+
+
+PACK12_SCALE = 0.03  # bench_batch's pack12 range unit: 122.85 m in 12 bits
+
+
+def batch_drives(batch: int, n_frames: int, n_scans: int, n_azimuth: int,
+                 pack: bool, workers: int) -> list[list[np.ndarray]]:
+    """scripts/bench_extras.py::bench_batch's streams, n_frames range images
+    each: stream b drives urban_scene(b, extent=80) along
+    drive_trajectory(n_frames, speed=1.1, yaw_rate=0.01 + 0.002 b), frame k
+    seeded b * 1000 + k, in 5 mm units, or with pack in 3 cm units clipped
+    at 4095. Cached a stream a mode; the streams not in the cache are made
+    in one pool."""
+    from ..data import synthetic
+
+    scale = PACK12_SCALE if pack else 0.005
+    poses = [synthetic.drive_trajectory(n_frames, speed=1.1,
+                                        yaw_rate=0.01 + 0.002 * b)
+             for b in range(batch)]
+    keys = [(f"batch{b}_{n_frames}",
+             (b, 80.0, n_scans, n_azimuth, 0.01, 1.1, 0.01 + 0.002 * b,
+              scale, pack, n_frames)) for b in range(batch)]
+
+    def make(bs) -> dict:
+        if not bs:
+            return {}
+        scans = _pool_map(_scan, [(T, b * 1000 + k, n_scans, n_azimuth, b,
+                                   scale)
+                                  for b in bs for k, T in enumerate(poses[b])],
+                          workers)
+        if pack:
+            scans = [np.minimum(s, 4095).astype(np.uint16) for s in scans]
+        return {b: scans[i * n_frames:(i + 1) * n_frames]
+                for i, b in enumerate(bs)}
+
+    made = make([b for b in range(batch)
+                 if not _cache_path(*keys[b]).exists()])
+    return [_cached(*keys[b], lambda b=b: made.get(b) or make([b])[b])
+            for b in range(batch)]
 
 
 class _Calib:
@@ -280,6 +340,40 @@ def bench_combined(cfg, frames, images, device, chunk: int, window: int,
     return max(rates), sorted(rates)[len(rates) // 2]
 
 
+def bench_batch(cfg, streams, device, chunk: int = 8, window: int = 24,
+                windows: int = 3, pack: bool = False) -> tuple[float, float]:
+    """Best and median window aggregate frames/s (streams x lockstep frames
+    a second) of BatchLoamEngine(cfg, len(streams), chunk, quantize_mm=5.0,
+    pack12=pack) over the streams' range images (batch_drives): `chunk`
+    lockstep warm-up frames, then `windows` windows of `window` lockstep
+    frames, each frame pushed stream by stream (bench_extras.bench_batch).
+    Raises unless finish() gives finite [B, F, 24] rows."""
+    from ..lidar.loam_step import OUT_DIM, BatchLoamEngine
+
+    if window % chunk:
+        raise ValueError(f"window {window} is not a multiple of chunk "
+                         f"{chunk}: a window would end inside a chunk")
+    scale = PACK12_SCALE if pack else 0.005
+    batch, n = len(streams), chunk + window * windows
+    eng = BatchLoamEngine(cfg, batch, chunk=chunk, quantize_mm=5.0,
+                          pack12=pack, device=device)
+
+    def push(k):
+        for b, frames in enumerate(streams):
+            eng.push_polar(b, frames[k], range_scale=scale)
+
+    for k in range(chunk):
+        push(k)
+    _fence(device)
+    rates = [batch * r for r in _windows(push, chunk, window, windows,
+                                         device)]
+    outs = eng.finish()
+    if outs.shape != (batch, n, OUT_DIM) or not np.isfinite(outs).all():
+        raise RuntimeError(f"the batch engine's rows {outs.shape} are not "
+                           f"{(batch, n, OUT_DIM)} finite rows")
+    return max(rates), sorted(rates)[len(rates) // 2]
+
+
 def bench_pose_graph(device, n_poses: int = 256, gn_iters: int = 10,
                      cg_iters: int = 32) -> float:
     """Gauss-Newton steps a second of optimize_pose_graph on a drifting
@@ -306,16 +400,20 @@ def bench_pose_graph(device, n_poses: int = 256, gn_iters: int = 10,
 
 def run(device="cuda", cfg=None, n_azimuth: int = 1800, chunk: int = 16,
         warm: int = 16, window: int = 96, windows: int = 3,
-        combined: tuple[int, int] = (8, 32), n_poses: int = 256,
+        combined: tuple[int, int] = (8, 32),
+        batch: tuple[int, int, int] = (4, 8, 24), n_poses: int = 256,
         workers: int | None = None, frames=None, images=None) -> dict:
     """The JSON record: bench.py's keys (the roofline keys as the module
-    docstring says), the card, the host CPU, the combined engine's frames/s
-    and the pose graph's Gauss-Newton steps a second. The defaults are
-    bench.py's sizes; cfg defaults to kitti_hdl64(). combined: (chunk and
-    warm-up frames, window frames). frames, images: the drive's first warm
-    + window range images and first sum(combined) camera images (uint8),
-    where the caller has them already; otherwise they are generated (or
-    read from the cache)."""
+    docstring says), the card, the host CPU, the combined engine's frames/s,
+    the batch engine's aggregate frames/s at uint16 and pack12, and the pose
+    graph's Gauss-Newton steps a second. The defaults are bench.py's and
+    scripts/bench_extras.py's sizes; cfg defaults to kitti_hdl64().
+    combined: (chunk and warm-up frames, window frames); batch: (streams,
+    chunk and warm-up lockstep frames, window lockstep frames), `windows`
+    windows each. frames, images: the drive's first warm + window range
+    images and first sum(combined) camera images (uint8), where the caller
+    has them already; otherwise they are generated (or read from the
+    cache), as the batch streams always are."""
     from ..config import kitti_hdl64
     from ..data import synthetic
     from ..lidar.loam_step import engine_device
@@ -329,7 +427,7 @@ def run(device="cuda", cfg=None, n_azimuth: int = 1800, chunk: int = 16,
     frames = frames or _cached(
         f"lidar_{n_frames}",
         (0, 80.0, n_scans, n_azimuth, 0.01, 1.1, 0.01, n_frames),
-        lambda: _pool_map(_scan, [(T, k, n_scans, n_azimuth)
+        lambda: _pool_map(_scan, [(T, k, n_scans, n_azimuth, 0, 0.005)
                                   for k, T in enumerate(poses)], workers))
     rec = {"device": card_name(device), "host_cpu": host_cpu()}
     rec.update(bench_lidar(cfg, frames, device, chunk, warm, window,
@@ -354,6 +452,20 @@ def run(device="cuda", cfg=None, n_azimuth: int = 1800, chunk: int = 16,
                    combined_fps_median=median)
     except Exception as e:  # reported in the line, not dropped
         rec["combined_error"] = repr(e)
+    n_streams, b_chunk, b_window = batch
+    rec["batch_streams"] = n_streams
+    errors = []
+    for pack, key in ((False, "batch_fps"), (True, "batch_pack12_fps")):
+        try:
+            streams = batch_drives(n_streams, b_chunk + b_window * windows,
+                                   n_scans, n_azimuth, pack, workers)
+            best, median = bench_batch(cfg, streams, device, b_chunk,
+                                       b_window, windows, pack)
+            rec.update({key: best, key + "_median": median})
+        except Exception as e:  # reported in the line, not dropped
+            errors.append(f"{key}: {e!r}")
+    if errors:
+        rec["batch_error"] = "; ".join(errors)
     try:
         rec["pose_graph_gn_iters_per_sec"] = bench_pose_graph(device,
                                                               n_poses)
