@@ -94,6 +94,20 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      with the device time per launch of each hand-written kernel there (K3's
      in VloamEngine: the L2 the engine leaves it); printed, not gated: the
      profiler can lose records
+  T. the stage profilers (vloam_tpu_torch.tools.profile_stages,
+     profile_vision_stages, profile_batch_stages) at full width, one host
+     call and 5 graph replays a stage, chunks of 1, on the drive's first
+     frames and images: their tables printed. Every stage of the
+     LoamEngine polar frame captures into a CUDA graph; each frame split
+     (LoamEngine polar and xyz, VloamEngine, the single stream and the
+     4-stream lockstep frame) has its stages' kernel nodes summing exactly
+     to its whole frame's; each stage's hand-written kernels are as phases
+     5, 8 and 10 count them (K1 1 in registration, ring_min1_packed 4 in
+     LO, grid_probe 1 and row_gather 2 in the mapping stage, K3 1 in the
+     combined frame; B times the first two in the lockstep frame). Printed
+     beside each other for each engine: the whole frame's graph-replayed
+     device ms, phase 13's profiler device ms and wall, and the end-to-end
+     phase's wall (5, 8, 10); the phase's seconds
   14. the host layer (vloam_tpu_torch.cli, pipeline, runtime, backend):
      a. the drive written as a KITTI odometry layout (velodyne/*.bin,
         calib.txt, times.txt, ground truth), run by `python -m
@@ -258,6 +272,8 @@ CPU_FRAMES = 6
 IMG_W, IMG_H = 1242, 375
 VLOAM_CPU_FRAMES = 4
 PROFILE_FRAMES = 8
+# phase T: host calls, graph replays and chunk frames of the stage tools
+STAGE_RUNS, STAGE_REPLAYS, STAGE_CHUNK = 1, 5, 1
 # card vs CPU bounds of the combined engine, in metres over the first
 # VLOAM_CPU_FRAMES frames: LO and MO as phase 6 (the golden tolerances);
 # VO as MO (the VO LM sums in another order on the card)
@@ -739,7 +755,7 @@ def lidar_launches(n: int, **more) -> dict:
             "zncc_describe": 0, "ring_argmin2": 0, "masked_knn": 0, **more}
 
 
-def e2e_phase(cfg, frames, poses, card):
+def e2e_phase(cfg, frames, poses, card, walls):
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.lidar.loam_step import LoamEngine, unpack_outputs
 
@@ -762,6 +778,7 @@ def e2e_phase(cfg, frames, poses, card):
     launches = dict(kernels.LAUNCHES)
     res = unpack_outputs(outs)
     fps = (N_FRAMES - CHUNK) / dt
+    walls["LoamEngine"] = dt * 1e3 / (N_FRAMES - CHUNK)
     gt = np.stack([T[:3, 3] for T in poses])
     err = float(np.linalg.norm(res["t_w_mo"] - gt, axis=1).max())
     err_lo = float(np.linalg.norm(res["t_w_lo"] - gt, axis=1).max())
@@ -1048,7 +1065,7 @@ def _lockstep(eng, streams, ks) -> None:
             eng.push_polar(b, frames[k])
 
 
-def batch_phase(cfg, streams, stream_poses):
+def batch_phase(cfg, streams, stream_poses, walls):
     """4 streams in lockstep through BatchLoamEngine, then each stream alone
     through LoamEngine over the same frames, in turns on the same card."""
     from vloam_tpu_torch import kernels
@@ -1093,6 +1110,7 @@ def batch_phase(cfg, streams, stream_poses):
                                       - ref[f"t_w_{w.lower()}"]).max())
                       for w in BATCH_SINGLE_TOL})
     fps = BATCH * n_timed / dt
+    walls["BatchLoamEngine"] = dt * 1e3 / n_timed
     single_fps = BATCH * n_timed / sum(single_dt)
     per_frame = {k: v / BATCH_FRAMES for k, v in launches.items() if v}
     print(f"[10 batch end to end] {BATCH} streams x {BATCH_FRAMES} lockstep "
@@ -1402,7 +1420,7 @@ def vloam_errors(res, poses, calib) -> dict:
             "n32": int(res["n32"][1:].min())}
 
 
-def vloam_phase(cfg, frames, images, poses, calib):
+def vloam_phase(cfg, frames, images, poses, calib, walls):
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.vloam_step import VloamEngine, unpack_vloam_outputs
 
@@ -1427,6 +1445,7 @@ def vloam_phase(cfg, frames, images, poses, calib):
     res = unpack_vloam_outputs(outs, calib)
     err = vloam_errors(res, poses, calib)
     n = N_FRAMES - CHUNK
+    walls["VloamEngine"] = dt * 1e3 / n
     print(f"[8 combined end to end] {N_FRAMES} frames kitti_hdl64 "
           f"detach_VO_LO=False 64x{N_AZ} + {IMG_W}x{IMG_H}: {n / dt:.2f} "
           f"frames/s over frames {CHUNK}-{N_FRAMES - 1} ({dt * 1e3 / n:.2f} "
@@ -1582,6 +1601,61 @@ def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> dict:
                           for k, v in s["kernel_us"].items())
               for name, s in stats.items()), flush=True)
     return stats
+
+
+def stage_phase(frames, images, stats13, walls) -> None:
+    """Phase T: the three stage profilers; gates on capture, on the stage
+    splits' launch sums and on each stage's hand-written kernels."""
+    from vloam_tpu_torch.tools import (profile_batch_stages,
+                                       profile_stages, profile_vision_stages)
+
+    t0 = time.perf_counter()
+    kw = {"runs": STAGE_RUNS, "replays": STAGE_REPLAYS, "chunk": STAGE_CHUNK}
+    recs = {
+        "LoamEngine": profile_stages.run(frames=frames[:3], **kw),
+        "VloamEngine": profile_vision_stages.run(
+            frames=frames[:3], images=images[:3], **kw),
+        "BatchLoamEngine": profile_batch_stages.run(
+            frames=frames[:max(3, 2 * STAGE_CHUNK)], **kw)}
+    dt = time.perf_counter() - t0
+    polar = [r for r in recs["LoamEngine"]["stages"]
+             if r["key"].startswith("polar:")]
+    bad = [f"{r['key']}: {r['capture_error']}" for r in polar
+           if r["capture_error"] or r["device_how"] != "graph replay"]
+    if len(polar) != 7 or bad:
+        fail(f"LoamEngine polar stages not captured: {bad or polar}")
+    sums = {c["name"]: c for rec in recs.values()
+            for c in rec["checks"]["sums"]}
+    want = {"LoamEngine polar frame", "LoamEngine xyz frame",
+            "VloamEngine frame", "single-stream polar frame",
+            f"BatchLoamEngine lockstep frame (B={BATCH})"}
+    if set(sums) != want or not all(c["ok"] and c["captured"]
+                                    for c in sums.values()):
+        fail(f"stage launches do not sum to their frame's: {sums}")
+    hand = [c for rec in recs.values() for c in rec["checks"]["hand"]]
+    if not hand or not all(c["ok"] for c in hand):
+        fail("hand-written kernels by stage: "
+             f"{[c for c in hand if not c['ok']]}")
+    whole = {"LoamEngine": "polar:frame", "VloamEngine": "vloam:frame",
+             "BatchLoamEngine": f"{BATCH}:frame"}
+    names13 = dict(zip(whole, stats13))
+    print("[T stage profilers] tools/profile_stages.py, "
+          "profile_vision_stages.py, profile_batch_stages.py at full width "
+          f"({STAGE_RUNS} host call, {STAGE_REPLAYS} graph replays a stage, "
+          f"chunks of {STAGE_CHUNK}) in {dt:.1f} s: every LoamEngine polar "
+          f"stage captured; {len(sums)} frame splits' launches sum to their "
+          f"frames'; {len(hand)} stages' hand-written kernels as the "
+          "engines'. A frame, whole: " + "; ".join(
+              f"{eng} {r['launches']} kernel nodes, device "
+              f"{r['device_ms']:.2f} ms (graph replay), host enqueue "
+              f"{r['host_ms']:.2f} ms, wall {r['wall_ms']:.2f} ms; phase 13 "
+              f"(profiler) device {stats13[names13[eng]]['device_ms']:.2f} "
+              f"ms, wall {stats13[names13[eng]]['wall_ms']:.2f} ms; end to "
+              f"end (phase {ph}) wall {walls[eng]:.2f} ms"
+              for eng, ph in (("LoamEngine", 5), ("VloamEngine", 8),
+                              ("BatchLoamEngine", 10))
+              for r in [next(x for x in recs[eng]["stages"]
+                             if x["key"] == whole[eng])]), flush=True)
 
 
 def _xyz(frame) -> np.ndarray:
@@ -2872,13 +2946,15 @@ def main() -> None:
     (k2, s1_min1, packed, err_argmin2), shapes = ring_phase(ff)
     launches_assoc = assoc_phase(shapes)
     del ff, shapes
-    res_gpu, eng, outs_gpu = e2e_phase(cfg, frames, poses, card)
+    walls = {}  # the end-to-end phases' wall ms a (lockstep) frame
+    res_gpu, eng, outs_gpu = e2e_phase(cfg, frames, poses, card, walls)
     cpu_phase(cfg, frames, res_gpu)
     k3 = k3_phase(cfg_v, images)
     res_v, launches_v, grid_line = vloam_phase(cfg_v, frames, images, poses,
-                                               calib)
+                                               calib, walls)
     vloam_cpu_phase(cfg_v, frames, images, calib, res_v, grid_line)
-    outs_b, launches_b, beng = batch_phase(cfg, streams, stream_poses)
+    outs_b, launches_b, beng = batch_phase(cfg, streams, stream_poses,
+                                           walls)
     batch_cpu_phase(cfg, streams, outs_b)
     probe, s2 = s2_phase(eng, frames[N_FRAMES - 1], beng, streams)
     del eng, beng
@@ -2886,6 +2962,7 @@ def main() -> None:
                  stream_poses, res_gpu, res_v, outs_b)
     s1_argmin2 = ring_variants_phase(err_argmin2)
     stats13 = profile_phase(cfg, cfg_v, frames, images, calib, streams)
+    stage_phase(frames, images, stats13, walls)
     host_cli_phase(frames, poses, calib)
     res_host = host_combined_phase(cfg_v, frames, images, poses, calib)
     host_resume_phase(cfg, frames, outs_gpu)

@@ -86,6 +86,13 @@ needs JAX.)
 - The host engine (run_sequence, VisualOdometry) with no device runs on the
   card, launches the kernels and agrees with its CPU run; lk_flow on the
   card agrees with the CPU on 99% of the keypoints.
+- tools/timing.py::stage_clocks on a small LoamEngine polar frame
+  (tools/profile_stages.py's split, on the state of two frames): the whole
+  frame and each of its stages capture into a CUDA graph; the frame's
+  replayed device time is positive and at most its wall; its kernel nodes
+  are positive and equal the sum over its stages; its hand-written kernels
+  are K1 once, ring_min1_packed 4 times, grid_probe once and row_gather
+  twice, each in its stage.
 """
 
 import numpy as np
@@ -825,3 +832,60 @@ def test_masked_knn_refuses_what_the_kernel_does_not_take(cuda):
                            5, 0)
     with pytest.raises(ValueError, match="candidates"):
         kernels.masked_knn(q, c[:3], m[:3], 5, 0)
+
+
+def test_stage_clocks_capture_a_loam_frame(cuda):
+    from vloam_tpu_torch.config import tiny_test_profile
+    from vloam_tpu_torch.data import synthetic
+    from vloam_tpu_torch.geometry import so3
+    from vloam_tpu_torch.lidar import loam_step as ls
+    from vloam_tpu_torch.tools import profile_stages as ps
+    from vloam_tpu_torch.tools.timing import stage_clocks
+
+    cfg = tiny_test_profile()
+    S, A = cfg.lidar.n_scans, 360
+    scene = synthetic.urban_scene(0, extent=80.0)
+    frames = [torch.from_numpy(synthetic.simulate_scan_polar(
+        scene, T, n_scans=S, n_azimuth=A, seed=k).astype(np.int32)).to(cuda)
+        for k, T in enumerate(synthetic.drive_trajectory(3, speed=1.1))]
+    elev = torch.tensor(np.radians(synthetic.hdl64_elevations(S)),
+                        dtype=torch.float32, device=cuda)
+    dirs = sr.polar_directions(elev, A)
+    pq, pt = so3.identity_quat(cuda), torch.zeros(3, device=cuda)
+    up = torch.zeros((), dtype=torch.bool, device=cuda)
+
+    def reg(r):
+        return sr.register_scan_polar(r, dirs, cfg.lidar, cfg.scanreg)
+
+    st = ls.LoamState.create(cfg, cuda)
+    for r in frames[:2]:
+        st = ls.loam_frame_step_feats(st, reg(r), pq, pt, up, cfg)[0]
+    r = frames[2]
+    whole = stage_clocks(lambda: ls.loam_frame_step_feats(
+        st, reg(r), pq, pt, up, cfg), runs=2, device=cuda, replays=5)
+    assert whole["capture_error"] is None
+    assert whole["device_how"] == "graph replay"
+    assert 0 < whole["device_ms"] <= whole["wall_ms"]
+    assert whole["launches"] > 0
+    assert whole["hand"] == {"select_rings": 1, "ring_min1_packed": 4,
+                             "grid_probe": 1, "row_gather": 2}
+    m = cfg.mapping
+    feats = reg(r)
+    lo = ps.lo_stage(st, feats, pq, pt, up, cfg)
+    c = ps.voxel_stage(feats.less_sharp, m.line_resolution,
+                       m.corner_stack_cap)
+    s = ps.voxel_stage(feats.less_flat, m.plane_resolution, m.surf_stack_cap)
+    mp = ps.mapping_stage(st, lo, (*c, *s), cfg)
+    parts = [stage_clocks(fn, runs=1, device=cuda, replays=5) for fn in (
+        lambda: reg(r), lambda: ps.lo_stage(st, feats, pq, pt, up, cfg),
+        lambda: ps.voxel_stage(feats.less_sharp, m.line_resolution,
+                               m.corner_stack_cap),
+        lambda: ps.voxel_stage(feats.less_flat, m.plane_resolution,
+                               m.surf_stack_cap),
+        lambda: ps.mapping_stage(st, lo, (*c, *s), cfg),
+        lambda: ps.tail_stage(st, feats, lo, mp))]
+    assert all(p["capture_error"] is None for p in parts)
+    assert sum(p["launches"] for p in parts) == whole["launches"]
+    assert [p["hand"] for p in parts] == [
+        {"select_rings": 1}, {"ring_min1_packed": 4}, {}, {},
+        {"grid_probe": 1, "row_gather": 2}, {}]

@@ -305,6 +305,9 @@ def test_port_never_imports_jax():
             "vloam_tpu_torch.tools.eval_long, "
             "vloam_tpu_torch.tools.eval_loop_closure, "
             "vloam_tpu_torch.tools.eval_highway, "
+            "vloam_tpu_torch.tools.profile_stages, "
+            "vloam_tpu_torch.tools.profile_vision_stages, "
+            "vloam_tpu_torch.tools.profile_batch_stages, "
             "vloam_tpu_torch.cli, vloam_tpu_torch.pipeline, "
             "vloam_tpu_torch.runtime.checkpoint, "
             "vloam_tpu_torch.runtime.profiling, vloam_tpu_torch.data.kitti, "

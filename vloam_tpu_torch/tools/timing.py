@@ -16,14 +16,26 @@ host cannot stay ahead, and its interval is what a caller waits.
 torch.profiler's kernel durations are not used for this: on torch 2.11 /
 CUDA 12.8 it lost records of short traces that followed large ones, at times
 all of them.
+
+``stage_clocks`` gives a stage of a frame (any call that queues work and
+returns) its three clocks: the host's enqueue, the wall with a synchronize,
+and the device time of its kernels replayed back to back from a CUDA graph;
+with the kernel nodes of that graph and the hand-written kernels' launches
+(the tools/profile_*stages.py tools).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import subprocess
+import time
+import traceback
+from pathlib import Path
 
 import torch
 
+from .. import kernels
 from . import work
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA's H100 SXM data sheet
@@ -54,10 +66,12 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, runs: int = 20, cold: bool = True) -> float:
+def device_ms(fn, runs: int = 20, cold: bool = True,
+              blockers: int = _BLOCKER_MATMULS) -> float:
     """Mean device time of one fn() in ms over `runs` calls queued behind a
-    blocker, with the L2 cache flushed before each call when `cold` (see the
-    module docstring). fn must not wait for the device."""
+    blocker of `blockers` large matmuls, with the L2 cache flushed before
+    each call when `cold` (see the module docstring). fn must not wait for
+    the device."""
     dev = require_cuda()
     for _ in range(3):
         fn()
@@ -67,7 +81,7 @@ def device_ms(fn, runs: int = 20, cold: bool = True) -> float:
         dst = torch.empty_like(src)
     e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     torch.cuda.synchronize()
-    for _ in range(_BLOCKER_MATMULS):
+    for _ in range(blockers):
         torch.mm(blocker, blocker)
     e0.record()
     if cold:
@@ -86,20 +100,167 @@ def device_ms(fn, runs: int = 20, cold: bool = True) -> float:
     return ms
 
 
+def capture(fn, keep_graph: bool = False) -> torch.cuda.CUDAGraph:
+    """fn captured once into a CUDA graph (after a warm-up call on a side
+    stream, as torch.cuda.graph wants). keep_graph: keep the captured
+    cudaGraph_t readable (raw_cuda_graph); the graph is then instantiated at
+    its first replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
 def graphed(fn):
     """fn captured once into a CUDA graph; returns its replay. A composition
     of hundreds of small kernels outlasts device_ms's blocker (the host
     cannot queue them as fast as the card runs them); its replay runs them
     back to back, so device_ms of the replay is their device time."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up outside the capture, as torch.cuda.graph wants
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    return capture(fn).replay
+
+
+@functools.cache
+def _graph_api():
+    """(cudaGraphGetNodes, cudaGraphNodeGetType, the library's name) from
+    the libcudart this process loaded (torch's); OSError where it loaded
+    none."""
+    with open("/proc/self/maps") as maps:
+        path = next((line.split()[-1] for line in maps
+                     if "libcudart.so" in line), None)
+    if path is None:
+        raise OSError("no libcudart in this process")
+    lib = ctypes.CDLL(path)
+    get_nodes, node_type = lib.cudaGraphGetNodes, lib.cudaGraphNodeGetType
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                          ctypes.POINTER(ctypes.c_size_t)]
+    node_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    get_nodes.restype = node_type.restype = ctypes.c_int
+    return get_nodes, node_type, Path(path).name
+
+
+def graph_kernel_nodes(graph: torch.cuda.CUDAGraph) -> tuple[int, str]:
+    """The kernel nodes (cudaGraphNodeTypeKernel, 0) of a graph captured
+    with keep_graph=True, and how they were counted."""
+    raw = graph.raw_cuda_graph()
+    get_nodes, node_type, lib = _graph_api()
+    n = ctypes.c_size_t(0)
+    if get_nodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if get_nodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    count = 0
+    for node in nodes:
+        if node_type(node, ctypes.byref(kind)):
+            raise RuntimeError("cudaGraphNodeGetType failed")
+        count += kind.value == 0
+    return count, f"kernel nodes of the graph ({lib})"
+
+
+def _failed_op(e: BaseException) -> str:
+    """Where an exception left the port: the innermost frame of its
+    traceback inside vloam_tpu_torch, as file:line and its source."""
+    root = Path(__file__).resolve().parents[1]
+    frames = [f for f in traceback.extract_tb(e.__traceback__)
+              if Path(f.filename).resolve().is_relative_to(root)]
+    if not frames:
+        return "?"
+    f = frames[-1]
+    return (f"{Path(f.filename).resolve().relative_to(root.parent)}:"
+            f"{f.lineno} {(f.line or '').strip()}")
+
+
+def profiler_launches(fn) -> int:
+    """The kernel launches one fn() makes, counted by torch.profiler (the
+    runtime's and the driver's launch calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
-    return graph.replay
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+
+
+def stage_clocks(fn, runs: int = 3, device="cuda", replays: int = 20,
+                 warm: bool = True) -> dict:
+    """The clocks of one stage fn() (a call that queues work and returns):
+
+    host_ms: the enqueue on the host clock, the queue empty before the call
+    (a synchronize) and no synchronize inside it; wall_ms: the same call
+    and a synchronize after it; both means over `runs` calls, after one
+    warm-up call unless warm is False (the caller made it).
+    device_ms: device_ms (warm L2, `replays` calls) of fn captured into a
+    CUDA graph: its kernels replayed back to back, the host out of the way
+    (device_how "graph replay"; one blocker matmul: a replay is queued in
+    microseconds). A stage that cannot be captured keeps its
+    capture error in capture_error and is timed queued, device_ms(fn)
+    (device_how "queued": where the host cannot keep ahead, that is the
+    host's time); capture_error names the op that stopped the capture (its
+    file:line in the port and its source) and the error.
+    launches: the kernel nodes of the captured graph (launches_how says
+    so), or where no graph could be read, torch.profiler's count of one
+    call's launches.
+    hand: each hand-written kernel's launches in one call, from the
+    wrappers' counts (kernels.LAUNCHES), kernels with none left out.
+    On the CPU only host_ms and wall_ms; the rest are None."""
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if warm:
+        fn()
+    host = wall = 0.0
+    hand = None
+    for r in range(runs):
+        sync()
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        sync()
+        t2 = time.perf_counter()
+        host += t1 - t0
+        wall += t2 - t0
+        if r == 0:
+            hand = {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+                    if v != before[k]}
+    out = {"host_ms": host / runs * 1e3, "wall_ms": wall / runs * 1e3,
+           "device_ms": None, "device_how": None, "launches": None,
+           "launches_how": None, "hand": None, "capture_error": None}
+    if not on_card:
+        return out
+    out["hand"] = hand
+    try:
+        graph = capture(fn, keep_graph=True)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        out.update(capture_error=f"{_failed_op(e)}: {type(e).__name__}: "
+                   + str(e).strip().splitlines()[0],
+                   device_ms=device_ms(fn, replays, cold=False),
+                   device_how="queued", launches=profiler_launches(fn),
+                   launches_how="torch.profiler (no graph)")
+        return out
+    try:
+        out["launches"], out["launches_how"] = graph_kernel_nodes(graph)
+    except (RuntimeError, OSError) as e:
+        out["launches"] = profiler_launches(fn)
+        out["launches_how"] = (f"torch.profiler (graph nodes unread: "
+                               f"{type(e).__name__})")
+    out["device_ms"] = device_ms(graph.replay, replays, cold=False,
+                                 blockers=1)
+    out["device_how"] = "graph replay"
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
