@@ -2,8 +2,9 @@
 LOAM engine, the combined camera + LiDAR engine, the 4-stream lockstep
 batch engine, the host layer around them (command line, sequence runner,
 checkpoints, loop closure), the per-stage host engine, the distributed
-(mesh) paths and two of the accuracy evaluations (the 100-frame golden
-drive, the 500-frame long drive).
+(mesh) paths, two of the accuracy evaluations (the 100-frame golden
+drive, the 500-frame long drive) and the tools of the JAX package's last
+measurement scripts.
 
     python3 chip_smoke.py
 
@@ -138,7 +139,7 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         iterations) on one frame pair, card against CPU (status on >= 99%,
         xy1 within 0.01 px on >= 99%); VloamEngine over the drive with
         optical_flow_match and with lowtex_fallback: no host sync in frames
-        16-31, MO < 0.15 m, launches a frame beside the default path's
+        8-31, MO < 0.15 m, launches a frame beside the default path's
      d. python -m vloam_tpu_torch run --synthetic 12 --mode combined
         --engine host --viz DIR with no --device, and with --optical-flow,
         side by side: match (flow) and depth PNGs, the timing summary and
@@ -197,6 +198,16 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      5. close_loops(mesh=<one NCCL rank>) on 14b's trajectory: 14d's loops,
         poses within 1e-3 m; `python -m vloam_tpu_torch run --synthetic 12
         --mesh 1` with no --device
+     S. vloam_tpu_torch.tools.model_mesh_scaling on that rank: the D = 1
+        mesh chunk over 8 frames and one frame of it by stages (windows,
+        the masked_knn sweeps, the LM chains, inserts and evicts), the
+        stages' kernel launches summed equal to the one-frame chunk's and
+        the stages in order bit for bit with it; the model's D = 2, 4, 8
+        rows (the link an assumption, printed as one)
+     B. vloam_tpu_torch.tools.bench_mesh: scripts/bench_mesh.py's frame
+        through mesh_solve_mapping at D = 1 (this NCCL rank) and at D = 2
+        gloo ranks sharing the card: each pose within 0.01 m of the
+        single-device solve, each rank's accepted count, ms a solve
   E. the accuracy evaluations (vloam_tpu_torch.tools.eval_*, the
      counterparts of scripts/eval_*.py), frames made in 8 spawned worker
      processes:
@@ -220,6 +231,26 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      a window: its line parses, with bench.py's keys (the roofline keys
      among them, a share in (0, 1]) and the port's (the batch keys among
      them, both modes' rates > 0), finite numbers and the card's name
+  U. vloam_tpu_torch.tools.profile_upload_overlap: the polar chunk staged
+     four ways (one upload a chunk or a frame, with and without pack12), one
+     turn of 2 timed chunks of 16: rows identical across the modes;
+     frames/s, host enqueue and the copies' device ms a frame
+  DV. vloam_tpu_torch.tools.diag_vo's main entry, base variant, over the
+     first 4 pairs of the 100-frame drive on the card and on the CPU:
+     matches, n32 / n22, match reprojection, rotation and translation
+     errors side by side; finite solves with n32 > 0 on the card
+  L2. vloam_tpu_torch.tools.profile_lo2 at full width (solve_lo, the
+     shortlist association, the distance product in float32, TF32 and
+     bf16, top-k shortlists), and the shortlist association's picks and
+     distances card = CPU bit for bit, corner and surf; TF32 off again
+  BK. vloam_tpu_torch.tools.bench_knn: masked_knn (knn.cu) and its plain
+     version at scripts/bench_knn.py's four shapes (16384 x 307200 down to
+     1024 x 8192), bit for bit on the first 1024 queries of each
+The frames of U, DV, L2, MS and the accuracy phases are rendered by a
+`chip_smoke.py prerender` process (6 workers) started after phase 11,
+beside the phases that follow; the smoke waits for it after M5 and ends
+its process group on exit. Every phase prints its seconds ([time])
+and a [seconds] line lists them all before [done].
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
 kernels' JSON line, the card's line and, last, the device line. Each row of
@@ -271,7 +302,10 @@ N_AZ = 1800
 CPU_FRAMES = 6
 IMG_W, IMG_H = 1242, 375
 VLOAM_CPU_FRAMES = 4
-PROFILE_FRAMES = 8
+# frames under torch.profiler in phases 13, 15c and M2 (after as many warm
+# frames): 4 since PR 18, whose smoke must end in 950 s (the profiler's
+# post-processing took 119 s of phase 13 and most of 15c's 137 s at 8)
+PROFILE_FRAMES = 4
 # phase T: host calls, graph replays and chunk frames of the stage tools
 STAGE_RUNS, STAGE_REPLAYS, STAGE_CHUNK = 1, 5, 1
 # card vs CPU bounds of the combined engine, in metres over the first
@@ -2055,8 +2089,8 @@ def flow_phase(cfg, frames, images, poses, calib, default_stats) -> None:
     """15c: lk_flow at full width (2048 keypoints, window 15, 3 levels, 10
     iterations) on one frame pair, card against CPU; then VloamEngine over
     the drive with optical_flow_match and with lowtex_fallback: launches
-    per frame under torch.profiler (frames 8-15, as phase 13) beside the
-    default path's, no host sync in frames 16-31, errors."""
+    per frame under torch.profiler (frames 4-7, as phase 13) beside the
+    default path's, no host sync in frames 8-31, errors."""
     import dataclasses
 
     from vloam_tpu_torch import kernels
@@ -2832,6 +2866,223 @@ def mesh_loop_phase(cfg, frames, res_host, card_14d, mesh) -> None:
 
 E1_FRAMES = 100  # scripts/eval_synthetic.py's drive
 E2_FRAMES = 500  # scripts/eval_long.py's
+# ---- PR 18's phases: the last scripts' tools on the card ----
+
+PRERENDER_WORKERS = 6  # leave cores to the phases running beside it
+UPLOAD_CHUNK, UPLOAD_CHUNKS = 16, 2  # phase U: one turn of 2 timed chunks
+DV_PAIRS = 4  # phase DV: the first 4 pairs of the 100-frame drive
+
+
+def prerender_main() -> None:
+    """Make the frames of the later phases (U, DV, L2, MS, E1, E2) into the
+    temporary directory's cache, in PRERENDER_WORKERS processes: run as
+    `chip_smoke.py prerender` beside the kernel phases, so that their host
+    rendering (~90 s of E1 and E2 alone) overlaps the card's work."""
+    from vloam_tpu_torch.config import kitti_hdl64
+    from vloam_tpu_torch.data import synthetic
+    from vloam_tpu_torch.tools import (eval_frames, model_mesh_scaling,
+                                       profile_upload_overlap, stages)
+
+    cfg = kitti_hdl64()
+    w = PRERENDER_WORKERS
+    t0 = time.perf_counter()
+    eval_frames.synthetic_drive(E1_FRAMES, cfg, with_cam=True, workers=w,
+                                first=DV_PAIRS + 1)
+    profile_upload_overlap.drive(UPLOAD_CHUNK * (UPLOAD_CHUNKS + 1), 64,
+                                 N_AZ, w)
+    stages.xyz_frames(synthetic.drive_trajectory(2, speed=1.1,
+                                                 yaw_rate=0.01),
+                      range(2), 64, N_AZ, cfg.lidar.max_points)
+    model_mesh_scaling.drive(64, N_AZ, w)
+    eval_frames.synthetic_drive(E1_FRAMES, cfg, workers=w)
+    eval_frames.long_drive(E2_FRAMES, workers=w)
+    print(f"[prerender] the frames of phases U, DV, L2, MS, E1 and E2 in "
+          f"{time.perf_counter() - t0:.1f} s ({w} processes beside the "
+          "phases)", flush=True)
+
+
+def start_prerender() -> subprocess.Popen:
+    """prerender_main in its own process group (stop_prerender ends it and
+    its workers)."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "prerender"], start_new_session=True)
+
+
+def stop_prerender(proc: subprocess.Popen, wait: bool) -> None:
+    """Wait for the prerender (wait) or end it; either way no process of
+    its group is left."""
+    import signal
+
+    if wait:
+        t0 = time.perf_counter()
+        code = proc.wait()
+        print(f"[prerender] waited {time.perf_counter() - t0:.1f} s for it",
+              flush=True)
+        if code:
+            fail(f"the prerender process exited {code}")
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def upload_phase() -> None:
+    """U: tools/profile_upload_overlap's four stagings of the polar chunk
+    (A one upload a chunk, B one a frame, C and D the same with pack12),
+    one turn of 2 timed chunks of 16 after a warm chunk: rows identical
+    across the modes; frames/s, host enqueue and the copies' device ms."""
+    from vloam_tpu_torch.tools import profile_upload_overlap as upo
+
+    t0 = time.perf_counter()
+    rec = upo.run("cuda", chunk=UPLOAD_CHUNK, n_chunks=UPLOAD_CHUNKS,
+                  turns=1)
+    print(f"[U upload overlap] kitti_hdl64 64x{N_AZ} at 3 cm, chunk "
+          f"{UPLOAD_CHUNK}, {UPLOAD_CHUNKS} timed chunks a mode: " + "; ".join(
+              f"{m['mode']} {m['fps']:.2f} frames/s, host enqueue "
+              f"{m['host_ms']:.2f} ms a frame, copies {m['copy_ms']:.4f} ms "
+              "a frame on the device" for m in rec["modes"])
+          + f"; rows identical across the modes: {rec['rows_equal']} "
+          f"(in {time.perf_counter() - t0:.1f} s) {clocks()}", flush=True)
+    if not rec["rows_equal"]:
+        fail("U: an upload mode's rows differ from mode A's")
+
+
+def mesh_model_phase() -> None:
+    """MS: tools/model_mesh_scaling at D = 1 (one NCCL rank): the mesh
+    chunk's frame by stages, their kernel launches summed against the
+    one-frame chunk's, the stages in order bit for bit with it; the model's
+    rows."""
+    from vloam_tpu_torch.tools import model_mesh_scaling as mms
+
+    t0 = time.perf_counter()
+    rec = mms.run("cuda", runs=1, replays=5)
+    s, chk = rec["stage_ms"], rec["split_sum"]
+    print(f"[MS mesh model] D = 1 chunk {s['mesh_d1']:.3f} ms a frame "
+          f"({rec['stage_clock']}), one frame by stages: windows "
+          f"{s['window']:.3f}, setup {s['setup']:.3f}, masked_knn sweeps "
+          f"{s['knn']:.3f}, LM chains {s['lm']:.3f}, inserts + evicts "
+          f"{s['insert']:.3f}, tail {s['tail']:.3f} (one-frame chunk "
+          f"{s['chunk_1_frame']:.3f}); single engine's mapping stage "
+          f"{s['single']:.3f} ms; launches summed {chk['sum']} against the "
+          f"chunk's {chk['whole']} ({chk['how']}); stages bit for bit with "
+          f"the chunk: {rec['split_identical']}; the model (link assumed: "
+          f"{rec['link']['gbps']} GB/s, {rec['link']['hop_latency_us']} us "
+          "a hop): " + "; ".join(
+              f"D={r['D']} {r['t_ms']:.3f} ms, eff {r['efficiency']:.3f}"
+              for r in rec["rows"]) + f" (in {time.perf_counter() - t0:.1f} "
+          f"s) {clocks()}", flush=True)
+    if not (chk["ok"] and rec["split_identical"]):
+        fail(f"MS: the mesh chunk's stages do not compose it: {chk}")
+
+
+def bench_mesh_phase() -> None:
+    """MB: tools/bench_mesh on the card, D = 1 under NCCL in this process
+    and D = 2 gloo ranks sharing the card: each pose within M2's 0.01 m of
+    the single-device solve."""
+    from vloam_tpu_torch.tools import bench_mesh
+
+    t0 = time.perf_counter()
+    rec = bench_mesh.run("cuda", sizes=(1, 2), reps=3)
+    print("[MB bench_mesh] scripts/bench_mesh.py's frame: " + "; ".join(
+        f"D={r['D']} ({r['how']}) |t - t_single| {r['t_err_mm']:.3f} mm, "
+        f"accepted by rank {r['accepted']}, {r['solve_ms']:.1f} ms a solve"
+        for r in rec["rows"]) + f" (in {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    bad = [r for r in rec["rows"] if not r["t_err_mm"] < MESH_TOL["MO"] * 1e3]
+    if bad or [r["D"] for r in rec["rows"]] != [1, 2]:
+        fail(f"MB: a mesh solve left the single-device pose by 0.01 m or "
+             f"more: {bad}")
+
+
+def diag_vo_phase() -> None:
+    """DV: tools/diag_vo's main entry, base variant, over the first 4 pairs
+    of the 100-frame drive on the card and on the CPU."""
+    from vloam_tpu_torch.config import kitti_hdl64
+    from vloam_tpu_torch.tools import diag_vo
+
+    t0 = time.perf_counter()
+    cfg = kitti_hdl64()
+    vo = cfg.replace(detach_VO_LO=False).vo
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        drive = diag_vo.load_drive(DV_PAIRS, cfg, dev)
+        recs[dev] = [diag_vo.pair_stats(drive, k, vo, quality=True)
+                     for k in range(DV_PAIRS)]
+
+    def text(r):
+        return (f"valid {r['valid']}, n32 {r['n32']}, n22 {r['n22']}, reproj "
+                f"med {r['reproj_med']:.2f} px, <2 px {r['inlier2']:.2f}, rot "
+                f"{r['rot_mrad']:.2f} mrad, trans {r['trans_mm']:.1f} mm")
+
+    print(f"[DV diag_vo] main, base, {DV_PAIRS} pairs of the 100-frame drive,"
+          " card | CPU: " + "; ".join(
+              f"pair {k}: {text(a)} | {text(b)}"
+              for k, (a, b) in enumerate(zip(recs["cuda"], recs["cpu"])))
+          + f" (in {time.perf_counter() - t0:.1f} s)", flush=True)
+    for r in recs["cuda"]:
+        if not (r["n32"] > 0 and np.isfinite(r["trans_mm"])
+                and np.isfinite(r["rot_mrad"])):
+            fail(f"DV: a pair's solve on the card: {r}")
+
+
+def shortlist_phase() -> None:
+    """L2: tools/profile_lo2 at full width (its rows timed), and the
+    shortlist association's picks on the card against the CPU's, corner and
+    surf, at its frame's LO shapes; TF32 off again after the phase."""
+    from vloam_tpu_torch.tools import legacy_assoc, profile_lo2
+
+    t0 = time.perf_counter()
+    rec = profile_lo2.run("cuda", runs=1, replays=5)
+    rows = "; ".join(f"{r['label']} {r['device_ms']:.3f} ms"
+                     for r in rec["stages"])
+    from vloam_tpu_torch.config import kitti_hdl64
+    from vloam_tpu_torch.data import synthetic
+    from vloam_tpu_torch.lidar import scan_registration as sr
+    from vloam_tpu_torch.tools.stages import n_points, xyz_frames
+
+    cfg = kitti_hdl64()
+    scans = xyz_frames(synthetic.drive_trajectory(2, speed=1.1,
+                                                  yaw_rate=0.01),
+                       range(2), 64, N_AZ, cfg.lidar.max_points)
+    f0, f1 = (sr.register_scan(torch.from_numpy(s).cuda(), n_points(s),
+                               cfg.lidar, cfg.scanreg) for s in scans)
+    same = {}
+    for mode, q, c in (("corner", f1.sharp, f0.less_sharp),
+                       ("surf", f1.flat, f0.less_flat)):
+        args = (q.xyz, c.xyz, c.ring, c.mask)
+        card = legacy_assoc.shortlist_ring_assoc(*args, cfg.lo.nearby_scan,
+                                                 mode, 24)
+        cpu = legacy_assoc.shortlist_ring_assoc(
+            *(a.cpu() for a in args), cfg.lo.nearby_scan, mode, 24)
+        same[mode] = all(torch.equal(card[k].cpu(), cpu[k]) for k in card)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    print(f"[L2 profile_lo2] {rows}; shortlist picks and distances card vs "
+          f"CPU identical: {same}; TF32 after the phase: {tf32} (in "
+          f"{time.perf_counter() - t0:.1f} s) {clocks()}", flush=True)
+    if not all(same.values()):
+        fail(f"L2: the shortlist association differs card vs CPU: {same}")
+    if tf32 or rec["tf32_after"]:
+        fail("L2: TF32 was left on")
+
+
+def bench_knn_phase() -> None:
+    """BK: tools/bench_knn at the script's four shapes: masked_knn (knn.cu)
+    and its plain version, bit for bit on the first 1024 queries."""
+    from vloam_tpu_torch.tools import bench_knn
+
+    t0 = time.perf_counter()
+    recs = bench_knn.run("cuda", runs=5, plain_runs=2)
+    print("[BK bench_knn] " + "; ".join(
+        f"{r['shape']} {r['Q']}x{r['C']}: kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms (peak {r['plain_peak_bytes'] / 2**20:.0f} "
+        f"MiB), bound {r['bound_ms'] * 1e3:.1f} us, first "
+        f"{r['checked_rows']} identical: {r['identical']}" for r in recs)
+          + f" (in {time.perf_counter() - t0:.1f} s) {clocks()}", flush=True)
+    if not all(r["identical"] for r in recs):
+        fail("BK: masked_knn differs from its plain version")
+
+
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden")
 # E1: MO within 0.15 m of ground truth (tests/test_golden_regression.py:37)
@@ -2926,81 +3177,133 @@ def long_drive_phase(cfg) -> None:
         fail(f"E2: {rec['degraded_frames']} degraded frames")
 
 
+SECONDS: dict[str, float] = {}  # each phase's seconds, printed at the end
+
+
+def timed(name: str, fn, *args, **kw):
+    """fn(*args, **kw), its seconds kept under `name`."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    dt = time.perf_counter() - t0
+    SECONDS[name] = SECONDS.get(name, 0.0) + dt
+    print(f"[time] phase {name} in {dt:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
-    card = device_phase()
-    knn_per_pair = build_phase()
+    card = timed("1", device_phase)
+    knn_per_pair = timed("2", build_phase)
     from vloam_tpu_torch.config import kitti_hdl64
-    from vloam_tpu_torch.data.synthetic import hdl64_elevations
-    from vloam_tpu_torch.lidar.scan_registration import polar_directions
 
     cfg = kitti_hdl64()
     cfg_v = cfg.replace(detach_VO_LO=False)
     calib = Calib()
-    frames, images, poses, streams, stream_poses = make_frames()
+    frames, images, poses, streams, stream_poses = timed("frames",
+                                                         make_frames)
+    procs = []  # the prerender, once started
+    try:
+        run_phases(t_start, card, knn_per_pair, cfg, cfg_v, calib, frames,
+                   images, poses, streams, stream_poses, procs)
+    finally:
+        for proc in procs:
+            stop_prerender(proc, wait=False)
+
+
+def run_phases(t_start, card, knn_per_pair, cfg, cfg_v, calib, frames,
+               images, poses, streams, stream_poses, procs) -> None:
+    from vloam_tpu_torch.data.synthetic import hdl64_elevations
+    from vloam_tpu_torch.lidar.scan_registration import polar_directions
+
     elev = torch.tensor(np.radians(hdl64_elevations(64)),
                         dtype=torch.float32, device="cuda")
     ff = frame_features(cfg, frames[:3], polar_directions(elev, N_AZ))
-    warm_up()
-    k1 = k1_phase(cfg, ff)
-    (k2, s1_min1, packed, err_argmin2), shapes = ring_phase(ff)
-    launches_assoc = assoc_phase(shapes)
+    timed("warm-up", warm_up)
+    k1 = timed("3", k1_phase, cfg, ff)
+    (k2, s1_min1, packed, err_argmin2), shapes = timed("4", ring_phase, ff)
+    launches_assoc = timed("4b", assoc_phase, shapes)
     del ff, shapes
     walls = {}  # the end-to-end phases' wall ms a (lockstep) frame
-    res_gpu, eng, outs_gpu = e2e_phase(cfg, frames, poses, card, walls)
-    cpu_phase(cfg, frames, res_gpu)
-    k3 = k3_phase(cfg_v, images)
-    res_v, launches_v, grid_line = vloam_phase(cfg_v, frames, images, poses,
-                                               calib, walls)
-    vloam_cpu_phase(cfg_v, frames, images, calib, res_v, grid_line)
-    outs_b, launches_b, beng = batch_phase(cfg, streams, stream_poses,
-                                           walls)
-    batch_cpu_phase(cfg, streams, outs_b)
-    probe, s2 = s2_phase(eng, frames[N_FRAMES - 1], beng, streams)
+    res_gpu, eng, outs_gpu = timed("5", e2e_phase, cfg, frames, poses, card,
+                                   walls)
+    timed("6", cpu_phase, cfg, frames, res_gpu)
+    k3 = timed("7", k3_phase, cfg_v, images)
+    res_v, launches_v, grid_line = timed("8", vloam_phase, cfg_v, frames,
+                                         images, poses, calib, walls)
+    timed("9", vloam_cpu_phase, cfg_v, frames, images, calib, res_v,
+          grid_line)
+    outs_b, launches_b, beng = timed("10", batch_phase, cfg, streams,
+                                     stream_poses, walls)
+    timed("11", batch_cpu_phase, cfg, streams, outs_b)
+    # the later phases' frames, rendered beside the phases from here on
+    # (after the CPU runs of phases 6, 9 and 11, which it would slow)
+    pre = start_prerender()
+    procs.append(pre)
+    probe, s2 = timed("S2", s2_phase, eng, frames[N_FRAMES - 1], beng,
+                      streams)
     del eng, beng
-    pack12_phase(cfg, cfg_v, frames, images, poses, calib, streams,
-                 stream_poses, res_gpu, res_v, outs_b)
-    s1_argmin2 = ring_variants_phase(err_argmin2)
-    stats13 = profile_phase(cfg, cfg_v, frames, images, calib, streams)
-    stage_phase(frames, images, stats13, walls)
-    host_cli_phase(frames, poses, calib)
-    res_host = host_combined_phase(cfg_v, frames, images, poses, calib)
-    host_resume_phase(cfg, frames, outs_gpu)
-    loops = host_loop_phase(cfg, frames, res_host)
+    timed("P", pack12_phase, cfg, cfg_v, frames, images, poses, calib,
+          streams, stream_poses, res_gpu, res_v, outs_b)
+    s1_argmin2 = timed("12", ring_variants_phase, err_argmin2)
+    stats13 = timed("13", profile_phase, cfg, cfg_v, frames, images, calib,
+                    streams)
+    timed("T", stage_phase, frames, images, stats13, walls)
+    timed("14a", host_cli_phase, frames, poses, calib)
+    res_host = timed("14b", host_combined_phase, cfg_v, frames, images,
+                     poses, calib)
+    timed("14c", host_resume_phase, cfg, frames, outs_gpu)
+    loops = timed("14d", host_loop_phase, cfg, frames, res_host)
     host_frames = _host_frames(frames, images)
-    res_he = host_engine_phase(cfg_v, host_frames, poses, calib, res_host)
-    host_cpu_phase(cfg_v, host_frames, calib, res_he)
-    flow_phase(cfg_v, frames, images, poses, calib, stats13["VloamEngine"])
-    host_cli_viz_phase()
-    thr = detector_phase(cfg_v.vo, images)
-    orb_flann_phase(cfg_v.vo, images, thr)
-    option_engines_phase(cfg_v, frames, images, poses, calib, thr)
-    batched_selection_phase(cfg, frames, poses)
-    ransac_phase()
+    res_he = timed("15a", host_engine_phase, cfg_v, host_frames, poses,
+                   calib, res_host)
+    timed("15b", host_cpu_phase, cfg_v, host_frames, calib, res_he)
+    timed("15c", flow_phase, cfg_v, frames, images, poses, calib,
+          stats13["VloamEngine"])
+    timed("15d", host_cli_viz_phase)
+    thr = timed("V1", detector_phase, cfg_v.vo, images)
+    timed("V2", orb_flann_phase, cfg_v.vo, images, thr)
+    timed("V3", option_engines_phase, cfg_v, frames, images, poses, calib,
+          thr)
+    timed("V4", batched_selection_phase, cfg, frames, poses)
+    timed("V5", ransac_phase)
     # the mesh: one NCCL rank on this card, in this process
     from vloam_tpu_torch.parallel.sharded import data_mesh
 
     t_mesh = time.perf_counter()
     mesh = data_mesh()
-    outs_m2, eng_m2, launches_m2 = mesh_engine_phase(cfg, frames, poses,
-                                                     outs_gpu, mesh)
-    knn = mesh_knn_phase(cfg, eng_m2, frames[N_FRAMES - 1], outs_m2[-1],
-                         knn_per_pair)
+    outs_m2, eng_m2, launches_m2 = timed("M2", mesh_engine_phase, cfg,
+                                         frames, poses, outs_gpu, mesh)
+    knn = timed("M1", mesh_knn_phase, cfg, eng_m2, frames[N_FRAMES - 1],
+                outs_m2[-1], knn_per_pair)
     del eng_m2
-    mesh_ranks_phase(frames, outs_m2)
-    mesh_vloam_phase(cfg_v, frames, images, calib, res_v, mesh)
-    mesh_loop_phase(cfg, frames, res_host, loops, mesh)
+    timed("M3", mesh_ranks_phase, frames, outs_m2)
+    timed("M4", mesh_vloam_phase, cfg_v, frames, images, calib, res_v, mesh)
+    timed("M5", mesh_loop_phase, cfg, frames, res_host, loops, mesh)
+    # the frames of MS and of the phases after M come from the prerender
+    timed("prerender wait", stop_prerender, pre, wait=True)
+    timed("MS", mesh_model_phase)
+    timed("MB", bench_mesh_phase)
     torch.distributed.destroy_process_group()
-    print(f"[M] phases M1-M5 in {time.perf_counter() - t_mesh:.1f} s",
-          flush=True)
+    print(f"[M] phases M1-M5, MS and MB in "
+          f"{time.perf_counter() - t_mesh:.1f} s", flush=True)
     t_eval = time.perf_counter()
-    golden_drive_phase(cfg)
-    long_drive_phase(cfg)
+    timed("E1", golden_drive_phase, cfg)
+    timed("E2", long_drive_phase, cfg)
     print(f"[E] phases E1-E2 in {time.perf_counter() - t_eval:.1f} s",
           flush=True)
-    bench_phase(card, frames, images)
-    print(f"[done] phases 1-B in {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    timed("B", bench_phase, card, frames, images)
+    t_new = time.perf_counter()
+    timed("U", upload_phase)
+    timed("DV", diag_vo_phase)
+    timed("L2", shortlist_phase)
+    timed("BK", bench_knn_phase)
+    print(f"[U-BK] phases U, DV, L2 and BK in "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+    total = time.perf_counter() - t_start
+    print("[seconds] each phase's: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in SECONDS.items())
+          + f"; the rest {total - sum(SECONDS.values()):.1f}", flush=True)
+    print(f"[done] phases 1-B in {total:.1f} s", flush=True)
     # launches: each kernel's count over the run of the path that drives it,
     # with the counts set to 0 just before: the batch drive (phase 10), the
     # combined engine (phase 8) for K3, the association forms (phase 4b)
@@ -3025,5 +3328,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["mesh-rank"]:
         mesh_rank_main(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["prerender"]:
+        prerender_main()
     else:
         main()

@@ -93,6 +93,9 @@ needs JAX.)
   are positive and equal the sum over its stages; its hand-written kernels
   are K1 once, ring_min1_packed 4 times, grid_probe once and row_gather
   twice, each in its stage.
+- tools/profile_upload_overlap's four stagings of the polar chunk give
+  identical rows on the card; tools/legacy_assoc's shortlist association
+  gives the CPU's picks and distances.
 """
 
 import numpy as np
@@ -889,3 +892,57 @@ def test_stage_clocks_capture_a_loam_frame(cuda):
     assert [p["hand"] for p in parts] == [
         {"select_rings": 1}, {"ring_min1_packed": 4}, {}, {},
         {"grid_probe": 1, "row_gather": 2}, {}]
+
+
+def test_upload_modes_give_identical_rows_on_card(cuda, tmp_path,
+                                                  monkeypatch):
+    """tools/profile_upload_overlap's four stagings of the polar chunk on
+    the card (one upload a chunk or a frame, with and without pack12) at
+    the tiny profile over 2 timed chunks: rows bit for bit equal, each
+    mode's copies timed by their events."""
+    import tempfile
+
+    from vloam_tpu_torch.tools import profile_upload_overlap as upo
+
+    from vloam_tpu_torch.lidar.loam_step import LoamEngine, _polar_dirs
+    from vloam_tpu_torch.tools.stages import profile
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    rec = upo.run(cuda, tiny=True, chunk=2, n_chunks=2, turns=1)
+    assert rec["rows_equal"]
+    assert [m["mode"] for m in rec["modes"]] == list(upo.MODES)
+    for m in rec["modes"]:
+        assert m["fps"] > 0 and m["copy_ms"] > 0
+        # one copy a chunk (A, C) or a frame (B, D) over the timed chunks
+        assert m["copies"] == (2 if m["mode"] in "AC" else 4)
+    # mode A's uploads on the card are the engine's own
+    cfg, n_az = profile(True)
+    frames = upo.drive(6, cfg.lidar.n_scans, n_az, 1)
+    rows = upo.run_mode("A", frames, cfg, cuda, 2, 2,
+                        _polar_dirs(cfg, n_az, None, cuda))["rows"]
+    eng = LoamEngine(cfg, chunk=2, device=cuda)
+    for f in frames:
+        eng.push_polar(f, range_scale=upo.RANGE_SCALE)
+    np.testing.assert_array_equal(eng.finish().view(np.int32),
+                                  rows.view(np.int32))
+
+
+@pytest.mark.parametrize("mode", ["corner", "surf"])
+def test_shortlist_assoc_on_card_equals_cpu(cuda, rng, mode):
+    """tools/legacy_assoc.shortlist_ring_assoc: every pick and distance on
+    the card equal to the CPU's (the distances' multiply-adds emulated in
+    float64 on both)."""
+    from vloam_tpu_torch.tools.legacy_assoc import shortlist_ring_assoc
+
+    Q, C = 777, 9000
+    q = rng.uniform(-40, 40, (Q, 3)).astype(np.float32)
+    c = (q[rng.integers(0, Q, C)] + rng.normal(0, 0.5, (C, 3))).astype(
+        np.float32)
+    ring = rng.integers(0, 64, C).astype(np.int32)
+    mask = rng.uniform(size=C) < 0.8
+    args = [torch.from_numpy(a) for a in (q, c, ring, mask)]
+    cpu = shortlist_ring_assoc(*args, 2.5, mode, 24)
+    card = shortlist_ring_assoc(*(a.to(cuda) for a in args), 2.5, mode, 24)
+    for k in cpu:
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    assert torch.isfinite(cpu["d2"]).float().mean() > 0.5

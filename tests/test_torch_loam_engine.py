@@ -315,6 +315,10 @@ def test_port_never_imports_jax():
             "vloam_tpu_torch.parallel.pose_graph, "
             "vloam_tpu_torch.vision.ransac, vloam_tpu_torch.geometry.se3, "
             "vloam_tpu_torch.solver.factors, vloam_tpu_torch.eval.plotting; "
+            # every module of tools/ (the last scripts' tools among them)
+            "import importlib, pkgutil, vloam_tpu_torch.tools as T; "
+            "[importlib.import_module(f'vloam_tpu_torch.tools.{m.name}') "
+            "for m in pkgutil.iter_modules(T.__path__)]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vloam_tpu')); assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -20,6 +20,10 @@ from vloam_tpu_torch.parallel import sharded
 
 torch.set_num_threads(1)
 
+# a collective gives up after this many seconds: under the test's LIMIT_S
+# (360 s), so a hung collective is reported by the rank that waits
+COLLECTIVE_S = 300
+
 
 def small_cfg(nb: int, cap_c: int, cap_s: int):
     """tests/test_pipeline.py::small_cfg with the given map grid."""
@@ -76,7 +80,7 @@ def pose_graph(mesh, data):
 
 
 def main(case: str, inp: str, out: str) -> None:
-    mesh = sharded.data_mesh(device="cpu", timeout_s=100)
+    mesh = sharded.data_mesh(device="cpu", timeout_s=COLLECTIVE_S)
     result = {"alignment": alignment, "engine": engine,
               "pose_graph": pose_graph}[case](mesh, np.load(inp))
     if mesh.rank == 0:

@@ -136,93 +136,149 @@ class MeshMappingChunk:
         return gather_map(cube, self.mesh)
 
 
-def make_mesh_mapping_chunk(mesh: Mesh, cfg, window_rows: int = 4096):
-    """The mesh mapping chunk for this rank, with the contract of
-    vloam_step.mapping_run_chunk:
-        (mstate, c_xyz [F, Cc, 3], c_m, s_xyz, s_m, q_w_lo [F, 4], t_w_lo)
-        -> (mstate', out [F, MESH_MO_OUT])
-    where mstate holds this rank's blocks (shard_map_state). Needs
-    mapping_skip_frame == 1, as the reference's."""
-    if cfg.lo.mapping_skip_frame != 1:
-        raise NotImplementedError(
-            "fused mesh mapping supports mapping_skip_frame == 1 "
-            "(use the host engine's mesh path for skipping)")
-    D = mesh.size
-    mcfg = cfg.mapping
-    nb = mcfg.map_n_buckets
-    if nb % D:
-        raise ValueError(f"map_n_buckets {nb} not divisible by mesh size {D}")
-    nbD = nb // D
-    w_rows = min(window_rows, nbD)
-    lo_row = mesh.rank * nbD
-    radius = window_half_extent(mcfg, mesh.device)
+class MeshFrameStages:
+    """The stages of one frame of this rank's mesh mapping chunk, in the
+    order the chunk runs them (make_mesh_mapping_chunk composes them; the
+    measurement tools/model_mesh_scaling.py times them one by one):
 
-    def insert(blk, stack, mask, q_m, t_m, cell, res):
+    window(qwm, twm, q_w, t_w, c_blk, s_blk): the map prediction, both
+      grids' windows and their ring shards -> (x0, corner shards, surf
+      shards, the active-row counts [2]);
+    aligned_rounds(...): sharded_mapping.aligned_rounds on this rank's
+      slice of the stacks (round_knn, the masked_knn sweep, then round_lm,
+      the LM chain, cfg.outer_rounds times);
+    update(...): the 'enough map' select, the inserts into the owning
+      ranks' blocks, the evict on cube-boundary crossings (its counts
+      all-reduced) and transformUpdate;
+    tail(poses, active, ...): the chunk's output rows and state."""
+
+    def __init__(self, mesh: Mesh, cfg, window_rows: int = 4096):
+        if cfg.lo.mapping_skip_frame != 1:
+            raise NotImplementedError(
+                "fused mesh mapping supports mapping_skip_frame == 1 "
+                "(use the host engine's mesh path for skipping)")
+        self.mesh = mesh
+        self.mcfg = mcfg = cfg.mapping
+        D = mesh.size
+        nb = mcfg.map_n_buckets
+        if nb % D:
+            raise ValueError(
+                f"map_n_buckets {nb} not divisible by mesh size {D}")
+        self.nb, self.nbD = nb, nb // D
+        self.w_rows = min(window_rows, self.nbD)
+        self.lo_row = mesh.rank * self.nbD
+        self.radius = window_half_extent(mcfg, mesh.device)
+
+    def rank_slices(self, c_xyz, s_xyz):
+        """This rank's slices of the [F, C, 3] corner and surf stacks."""
+        D, r = self.mesh.size, self.mesh.rank
+        CcD, CsD = c_xyz.shape[1] // D, s_xyz.shape[1] // D
+        return (slice(r * CcD, (r + 1) * CcD),
+                slice(r * CsD, (r + 1) * CsD))
+
+    def window(self, qwm, twm, q_w, t_w, c_blk, s_blk):
+        q_pred = so3.quat_normalize(so3.quat_multiply(qwm, q_w))
+        t_pred = twm + so3.quat_rotate(qwm, t_w)
+        wc, wc_m, nact_c = _window_block(c_blk, t_pred, self.w_rows)
+        ws, ws_m, nact_s = _window_block(s_blk, t_pred, self.w_rows)
+        x0 = torch.cat([q_pred, t_pred]).to(torch.float32)
+        return (x0, ring_shards(wc, wc_m, self.mesh),
+                ring_shards(ws, ws_m, self.mesh),
+                torch.stack([nact_c, nact_s]))
+
+    def aligned_rounds(self, c_xyz, c_m, s_xyz, s_m, shards_c, shards_s,
+                       x0):
+        """c_xyz ... s_m: this rank's slices of one frame's stacks."""
+        x, _ = aligned_rounds(c_xyz, c_m, s_xyz, s_m, shards_c, shards_s,
+                              x0, self.mcfg, self.mesh)
+        return x
+
+    def _insert(self, blk, stack, mask, q_m, t_m, cell, res):
         pw = so3.quat_rotate(q_m, stack) + t_m
-        local = _bucket_of(pw, cell, nb) - lo_row
-        key = torch.where(mask & (local >= 0) & (local < nbD), local, nbD)
+        local = _bucket_of(pw, cell, self.nb) - self.lo_row
+        key = torch.where(mask & (local >= 0) & (local < self.nbD), local,
+                          self.nbD)
         blk, ok, _ = _merged_row_insert(blk, key, pw, res)
         return blk, torch.sum(ok, dtype=torch.int32)
 
-    def chunk(mstate, c_xyz, c_m, s_xyz, s_m, q_w_lo, t_w_lo):
-        cube = mstate.cube
-        c_blk, s_blk = cube.corner.pts, cube.surf.pts
-        n_c, n_s, center = cube.corner.n_live, cube.surf.n_live, cube.center
-        qwm, twm = mstate.q_wmap_wodom, mstate.t_wmap_wodom
-        CcD, CsD = c_xyz.shape[1] // D, s_xyz.shape[1] // D
-        mc, ms = (slice(mesh.rank * n, (mesh.rank + 1) * n)
-                  for n in (CcD, CsD))
-        poses, active = [], []
-        for f in range(q_w_lo.shape[0]):
-            q_w, t_w = q_w_lo[f], t_w_lo[f]
-            q_pred = so3.quat_normalize(so3.quat_multiply(qwm, q_w))
-            t_pred = twm + so3.quat_rotate(qwm, t_w)
-            enough = ((n_c > mcfg.min_corner_map_points)
-                      & (n_s > mcfg.min_surf_map_points))
+    def update(self, x, x0, c_xyz, c_m, s_xyz, s_m, q_w, t_w, c_blk, s_blk,
+               n_c, n_s, center):
+        """c_xyz ... s_m: one frame's whole stacks. Returns (x, c_blk,
+        s_blk, n_c, n_s, center, qwm, twm)."""
+        mcfg = self.mcfg
+        enough = ((n_c > mcfg.min_corner_map_points)
+                  & (n_s > mcfg.min_surf_map_points))
+        x = torch.where(enough, x, x0)
+        q_m, t_m = x[:4], x[4:]
+        c_blk, add_c = self._insert(c_blk, c_xyz, c_m, q_m, t_m,
+                                    mcfg.corner_cell, mcfg.line_resolution)
+        s_blk, add_s = self._insert(s_blk, s_xyz, s_m, q_m, t_m,
+                                    mcfg.surf_cell, mcfg.plane_resolution)
 
-            wc, wc_m, nact_c = _window_block(c_blk, t_pred, w_rows)
-            ws, ws_m, nact_s = _window_block(s_blk, t_pred, w_rows)
-            active.append(torch.stack([nact_c, nact_s]))
+        # recenter on cube-boundary crossings (laser_mapping.cpp:207-402)
+        new_center = _cube_coord(t_m, mcfg.cube_size)
+        changed = torch.any(new_center != center)
+        c_w = new_center.to(torch.float32) * mcfg.cube_size
+        c_ev, keep_c = _block_evict(c_blk, c_w, self.radius)
+        s_ev, keep_s = _block_evict(s_blk, c_w, self.radius)
+        counts = psum(torch.stack([add_c, add_s, keep_c, keep_s]),
+                      self.mesh)
+        n_c = torch.where(changed, counts[2], n_c + counts[0])
+        n_s = torch.where(changed, counts[3], n_s + counts[1])
+        c_blk = torch.where(changed, c_ev, c_blk)
+        s_blk = torch.where(changed, s_ev, s_blk)
+        center = torch.where(changed, new_center, center)
 
-            x0 = torch.cat([q_pred, t_pred]).to(torch.float32)
-            x, _ = aligned_rounds(
-                c_xyz[f, mc], c_m[f, mc], s_xyz[f, ms], s_m[f, ms],
-                ring_shards(wc, wc_m, mesh), ring_shards(ws, ws_m, mesh),
-                x0, mcfg, mesh)
-            x = torch.where(enough, x, x0)
-            q_m, t_m = x[:4], x[4:]
+        # transformUpdate (laser_mapping.cpp:140-144)
+        qwm = so3.quat_normalize(
+            so3.quat_multiply(q_m, so3.quat_conjugate(q_w)))
+        twm = t_m - so3.quat_rotate(qwm, t_w)
+        return x, c_blk, s_blk, n_c, n_s, center, qwm, twm
 
-            c_blk, add_c = insert(c_blk, c_xyz[f], c_m[f], q_m, t_m,
-                                  mcfg.corner_cell, mcfg.line_resolution)
-            s_blk, add_s = insert(s_blk, s_xyz[f], s_m[f], q_m, t_m,
-                                  mcfg.surf_cell, mcfg.plane_resolution)
-
-            # recenter on cube-boundary crossings (laser_mapping.cpp:207-402)
-            new_center = _cube_coord(t_m, mcfg.cube_size)
-            changed = torch.any(new_center != center)
-            c_w = new_center.to(torch.float32) * mcfg.cube_size
-            c_ev, keep_c = _block_evict(c_blk, c_w, radius)
-            s_ev, keep_s = _block_evict(s_blk, c_w, radius)
-            counts = psum(torch.stack([add_c, add_s, keep_c, keep_s]), mesh)
-            n_c = torch.where(changed, counts[2], n_c + counts[0])
-            n_s = torch.where(changed, counts[3], n_s + counts[1])
-            c_blk = torch.where(changed, c_ev, c_blk)
-            s_blk = torch.where(changed, s_ev, s_blk)
-            center = torch.where(changed, new_center, center)
-
-            # transformUpdate (laser_mapping.cpp:140-144)
-            qwm = so3.quat_normalize(
-                so3.quat_multiply(q_m, so3.quat_conjugate(q_w)))
-            twm = t_m - so3.quat_rotate(qwm, t_w)
-            poses.append(x)
-        active = psum(torch.stack(active), mesh).to(torch.float32)
+    def tail(self, mstate, poses, active, c_blk, s_blk, n_c, n_s, center,
+             qwm, twm, n_frames: int):
+        """The chunk's rows [F, MESH_MO_OUT] (active rows summed over the
+        ranks) and its new state."""
+        active = psum(torch.stack(active), self.mesh).to(torch.float32)
         out = torch.cat([torch.stack(poses),
                          torch.ones_like(active[:, :1]), active], dim=1)
         new = mstate._replace(
             cube=GridMap(FeatureGrid(c_blk, n_c), FeatureGrid(s_blk, n_s),
                          center),
             q_wmap_wodom=qwm, t_wmap_wodom=twm,
-            frame_idx=mstate.frame_idx + q_w_lo.shape[0])
+            frame_idx=mstate.frame_idx + n_frames)
         return new, out
+
+
+def make_mesh_mapping_chunk(mesh: Mesh, cfg, window_rows: int = 4096):
+    """The mesh mapping chunk for this rank, with the contract of
+    vloam_step.mapping_run_chunk:
+        (mstate, c_xyz [F, Cc, 3], c_m, s_xyz, s_m, q_w_lo [F, 4], t_w_lo)
+        -> (mstate', out [F, MESH_MO_OUT])
+    where mstate holds this rank's blocks (shard_map_state). Needs
+    mapping_skip_frame == 1, as the reference's. A frame is
+    MeshFrameStages' window, aligned_rounds and update, in that order."""
+    st = MeshFrameStages(mesh, cfg, window_rows)
+
+    def chunk(mstate, c_xyz, c_m, s_xyz, s_m, q_w_lo, t_w_lo):
+        cube = mstate.cube
+        c_blk, s_blk = cube.corner.pts, cube.surf.pts
+        n_c, n_s, center = cube.corner.n_live, cube.surf.n_live, cube.center
+        qwm, twm = mstate.q_wmap_wodom, mstate.t_wmap_wodom
+        mc, ms = st.rank_slices(c_xyz, s_xyz)
+        poses, active = [], []
+        for f in range(q_w_lo.shape[0]):
+            q_w, t_w = q_w_lo[f], t_w_lo[f]
+            x0, shards_c, shards_s, act = st.window(qwm, twm, q_w, t_w,
+                                                    c_blk, s_blk)
+            active.append(act)
+            x = st.aligned_rounds(c_xyz[f, mc], c_m[f, mc], s_xyz[f, ms],
+                                  s_m[f, ms], shards_c, shards_s, x0)
+            x, c_blk, s_blk, n_c, n_s, center, qwm, twm = st.update(
+                x, x0, c_xyz[f], c_m[f], s_xyz[f], s_m[f], q_w, t_w, c_blk,
+                s_blk, n_c, n_s, center)
+            poses.append(x)
+        return st.tail(mstate, poses, active, c_blk, s_blk, n_c, n_s,
+                       center, qwm, twm, q_w_lo.shape[0])
 
     return chunk

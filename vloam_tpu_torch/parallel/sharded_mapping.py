@@ -72,30 +72,51 @@ def _ring_knn(queries: torch.Tensor, shards, k: int):
     return best_d, best_p.permute(2, 0, 1)
 
 
+def rounds_setup(c_stack, s_stack, x):
+    """What every round of aligned_rounds shares: (is_edge [Bc + Bs, 1],
+    the stacked scan points, the accepted count before any round)."""
+    B_c = c_stack.shape[0]
+    is_edge = (torch.arange(B_c + s_stack.shape[0], device=x.device)
+               < B_c)[:, None]
+    cp = torch.cat([c_stack, s_stack])
+    return is_edge, cp, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def round_knn(c_stack, s_stack, corner_shards, surf_shards, x, cfg):
+    """A round's global 5-NN: this rank's scan points moved by x, each
+    grid's ring k-NN over its visiting shards. Returns (corner, surf)
+    (d_sq, near) pairs."""
+    pc = so3.quat_rotate(x[:4], c_stack) + x[4:]
+    ps = so3.quat_rotate(x[:4], s_stack) + x[4:]
+    return (_ring_knn(pc, corner_shards, cfg.knn),
+            _ring_knn(ps, surf_shards, cfg.knn))
+
+
+def round_lm(c_mask, s_mask, cp, is_edge, knn_c, knn_s, x, cfg, mesh: Mesh):
+    """A round's line and plane fits and its LM chain, the normal
+    equations all-reduced: (x', the residuals this rank accepted)."""
+    corner = corner_geometry(c_mask, *knn_c, cfg)
+    surf = surf_geometry(s_mask, *knn_s, cfg)
+    x = lm_solve(fused_family(cp, is_edge, corner, surf), _retract, x,
+                 iterations=cfg.gn_iterations, huber_delta=cfg.huber_delta,
+                 reduce=psum_normal_equations(mesh))
+    return x, (corner[3].sum() + surf[2].sum()).to(torch.float32)
+
+
 def aligned_rounds(c_stack, c_mask, s_stack, s_mask, corner_shards,
                    surf_shards, x, cfg, mesh: Mesh):
     """This rank's part of the distributed scan-to-map refinement (the
     reference's aligned_rounds, run by every rank in step). c/s_stack and
     masks: this rank's scan points; corner/surf_shards: ring_shards of the
     map blocks. Returns (x [7], the same on every rank, and the residuals
-    this rank accepted in the last round)."""
-    B_c = c_stack.shape[0]
-    is_edge = (torch.arange(B_c + s_stack.shape[0], device=x.device)
-               < B_c)[:, None]
-    cp = torch.cat([c_stack, s_stack])
-    reduce = psum_normal_equations(mesh)
-    n_loc = torch.zeros((), dtype=torch.float32, device=x.device)
+    this rank accepted in the last round). Each round is round_knn then
+    round_lm (tools/model_mesh_scaling.py times them apart)."""
+    is_edge, cp, n_loc = rounds_setup(c_stack, s_stack, x)
     for _ in range(cfg.outer_rounds):
-        pc = so3.quat_rotate(x[:4], c_stack) + x[4:]
-        ps = so3.quat_rotate(x[:4], s_stack) + x[4:]
-        corner = corner_geometry(c_mask, *_ring_knn(pc, corner_shards,
-                                                    cfg.knn), cfg)
-        surf = surf_geometry(s_mask, *_ring_knn(ps, surf_shards, cfg.knn),
-                             cfg)
-        x = lm_solve(fused_family(cp, is_edge, corner, surf), _retract, x,
-                     iterations=cfg.gn_iterations,
-                     huber_delta=cfg.huber_delta, reduce=reduce)
-        n_loc = (corner[3].sum() + surf[2].sum()).to(torch.float32)
+        knn_c, knn_s = round_knn(c_stack, s_stack, corner_shards,
+                                 surf_shards, x, cfg)
+        x, n_loc = round_lm(c_mask, s_mask, cp, is_edge, knn_c, knn_s, x,
+                            cfg, mesh)
     return x, n_loc
 
 

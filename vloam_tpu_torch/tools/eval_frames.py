@@ -106,25 +106,35 @@ def _camera_drive(key, scene, poses, cfg, with_cam, with_polar, n_scans,
     return calib, frames, _cam0_truth(poses, calib.imu_T_cam0)
 
 
-def synthetic_drive(n_frames: int = 100, cfg=None, with_cam: bool = False,
-                    with_polar: bool = False, n_scans: int = 64,
-                    n_azimuth: int = 1800, workers: int | None = None):
-    """scripts/eval_synthetic.py's drive: urban scene 0 (extent 160, 36
-    boxes, 48 poles, 24 scattered), an S-curve at 1.2 m a frame turning
-    +-0.006 rad a frame, noise 0.01, seed k. Returns (calib, frames, gt):
-    frames hold "points" ([n, 3] float32) or, with_polar, "polar" ([n_scans,
-    n_azimuth] uint16), and with_cam "image" ([H, W] float32 in [0, 1]); gt
-    [N, 3, 4] is cam0's pose relative to its first."""
-    from ..config import kitti_hdl64
-
+def synthetic_world(n_frames: int = 100):
+    """(scene, sensor poses [N, 4, 4]) of scripts/eval_synthetic.py's
+    drive: urban scene 0 (extent 160, 36 boxes, 48 poles, 24 scattered), an
+    S-curve at 1.2 m a frame turning +-0.006 rad a frame."""
     scene = synthetic.urban_scene(0, extent=160.0, n_boxes=36, n_poles=48,
                                   scatter=24)
     k = np.arange(n_frames)
     yaw = np.where(k < n_frames // 4, 0.006,
                    np.where(k < 3 * n_frames // 4, -0.006, 0.006))
-    poses = synthetic.drive_trajectory(n_frames, speed=1.2, yaw_rate=yaw)
-    return _camera_drive("synthetic", scene, poses, cfg or kitti_hdl64(),
-                         with_cam, with_polar, n_scans, n_azimuth, workers)
+    return scene, synthetic.drive_trajectory(n_frames, speed=1.2,
+                                             yaw_rate=yaw)
+
+
+def synthetic_drive(n_frames: int = 100, cfg=None, with_cam: bool = False,
+                    with_polar: bool = False, n_scans: int = 64,
+                    n_azimuth: int = 1800, workers: int | None = None,
+                    first: int | None = None):
+    """scripts/eval_synthetic.py's drive (synthetic_world), noise 0.01,
+    seed k. Returns (calib, frames, gt): frames hold "points" ([n, 3]
+    float32) or, with_polar, "polar" ([n_scans, n_azimuth] uint16), and
+    with_cam "image" ([H, W] float32 in [0, 1]); gt [N, 3, 4] is cam0's
+    pose relative to its first. first: only the drive's first frames
+    (tools/diag_vo.py reads the first pairs of the 100-frame drive)."""
+    from ..config import kitti_hdl64
+
+    scene, poses = synthetic_world(n_frames)
+    return _camera_drive("synthetic", scene, poses[:first],
+                         cfg or kitti_hdl64(), with_cam, with_polar, n_scans,
+                         n_azimuth, workers)
 
 
 def long_scene(poses) -> synthetic.Scene:
