@@ -186,9 +186,10 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         engine's shapes (the last frame's 2048 corner and 6144 surf stack
         points against those windows of 4096 x 32 and 4096 x 16 slots):
         indices and distance bits identical to masked_knn_plain on the card,
-        indices identical to the CPU's; the kernel's device time a call, the
-        plain version's, launches a call, the bound and the issue floor at
-        phase 2's instructions a pair
+        indices identical to the CPU's; the kernel's device time a call
+        beside knn.cu's first design's (MASKED_KNN_BEFORE_US) and the plain
+        version's, launches a call, the bound and the issue floor at phase
+        2's instructions a pair over every slot and over the live pairs
      3. the first 16 frames at 2 gloo ranks sharing the card (processes
         started by parallel/launch.py; the ring hop through host memory):
         MO within 0.01 m of M2, host syncs printed; with 2 or more cards
@@ -245,7 +246,8 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      distances card = CPU bit for bit, corner and surf; TF32 off again
   BK. vloam_tpu_torch.tools.bench_knn: masked_knn (knn.cu) and its plain
      version at scripts/bench_knn.py's four shapes (16384 x 307200 down to
-     1024 x 8192), bit for bit on the first 1024 queries of each
+     1024 x 8192), bit for bit on the first 1024 queries of each; the bound
+     and the issue floor over every slot and over the live pairs
 The frames of U, DV, L2, MS and the accuracy phases are rendered by a
 `chip_smoke.py prerender` process (6 workers) started after phase 11,
 beside the phases that follow; the smoke waits for it after M5 and ends
@@ -261,7 +263,8 @@ grid_probe (the lockstep frame's probe of both grids) and row_gather (the
 flat surf insert), the association forms (phase 4b) for ring_min2 and
 ring_min1, the combined engine (phase 8) for zncc_describe, the
 ring-variants entry point (phase 12) for ring_argmin2, the mesh engine (M2)
-for masked_knn (its times and bound at M1's corner window).
+for masked_knn (its times and bound at M1's corner window; the bound over
+the live pairs, the work the kernel has since it skips masked slots).
 
 Kernel times are device times (vloam_tpu_torch.tools.timing.device_ms: CUDA
 events around 20 calls queued behind a blocker, so the ~30 us host call of a
@@ -335,6 +338,10 @@ RING_MIN1_PACKED_BEFORE_US = {"product": {"corner": 6.4, "surf": 31.4},
 # [3, C] slab read three floats a slot) at the ring-variants entry point's
 # surf shape 2048 x [64,3,512], as phase 12 times it (PERF.md section 6)
 RING_ARGMIN2_BEFORE_US = 83.39
+# ... and of the first masked_knn (every slot swept, masked ones included,
+# each slice on its own threshold) at M1's windows, timed in turns with the
+# redesign in one run of M1 (PERF.md section 6)
+MASKED_KNN_BEFORE_US = {"corner": 258.7, "surf": 330.0}
 
 
 def fail(msg: str) -> None:
@@ -2603,10 +2610,12 @@ def mesh_knn_phase(cfg, eng, frame, mo_row, per_pair) -> dict:
     masked_knn (kernels/csrc/knn.cu) at the mesh engine's shapes, the last
     frame's stacks against those windows: 2048 corner queries x 4096*32
     slots, 6144 surf x 4096*16. Kernel against masked_knn_plain on the card:
-    indices and distance bits identical; against the CPU: indices identical;
-    device time a call beside the plain version's, launches a call, the
-    bound and the issue floor at per_pair (phase 2) instructions a pair.
-    Returns the kernels line's row at the corner window."""
+    indices and distance bits identical; against the CPU: indices
+    identical; device time a call beside the first design's
+    (MASKED_KNN_BEFORE_US) and the plain version's, launches a call, the
+    bound and the issue floor at per_pair (phase 2) instructions a pair over
+    every slot and over the live pairs. Returns the kernels line's row at
+    the corner window, its bound over the live pairs."""
     from torch.profiler import ProfilerActivity, profile
 
     from vloam_tpu_torch import kernels
@@ -2663,31 +2672,39 @@ def mesh_knn_phase(cfg, eng, frame, mo_row, per_pair) -> dict:
         same = torch.equal(i.cpu(), i_c)
         fin = torch.isfinite(d_c)
         diff = float((d.cpu() - d_c)[fin].abs().max()) if fin.any() else 0.0
+        live = int(mask.sum())
         ms = device_ms(lambda: masked_knn(qw, pts, mask), runs=20,
                        cold=False)
+        first_us = MASKED_KNN_BEFORE_US[name]
         plain_ms = device_ms(lambda: masked_knn_plain(qw, pts, mask), runs=5,
                              cold=False)
         launches = device_launches(lambda: masked_knn(qw, pts, mask))
         plain_launches = device_launches(
             lambda: masked_knn_plain(qw, pts, mask))
         bound = knn_bound(Q, C, 5)
+        bound_live = knn_bound(Q, C, 5, live=live)
         floor = knn_issue_floor(Q, C, per_pair[5])
+        floor_live = knn_issue_floor(Q, C, per_pair[5], live=live)
         lines.append(
             f"{name} window {MESH_WINDOW} x {grid.pts.shape[1]} of "
             f"[{grid.pts.shape[0]}, {grid.pts.shape[1]}] ({int(n_act)} "
             "active rows): points, mask and active rows "
             + ("bit-identical" if win_same else "DIFFER")
-            + f" card vs CPU gather; {Q} x {C} ({int(mask.sum())} live): "
+            + f" card vs CPU gather; {Q} x {C} ({live} live): "
             "kernel vs masked_knn_plain on the card: indices and distance "
             "bits " + ("identical" if same_plain else "DIFFER")
             + f" (max |d_sq| diff {err:.3g}); indices "
             + ("identical" if same else "DIFFER")
             + f" card vs CPU, max |d_sq| diff {diff:.3g} m^2; kernel "
-            f"{ms * 1e3:.1f} us a call ({counted} count, {launches} device "
-            f"launches), plain version {plain_ms:.3f} ms ({plain_launches} "
-            f"launches); bound {bound[0] * 1e3:.1f} us ({bound[1]}), issue "
-            f"floor {floor * 1e3:.1f} us at {per_pair[5]:.2f} instructions "
-            f"a pair: kernel {ms / floor:.2f}x the floor")
+            f"{ms * 1e3:.1f} us a call [first design {first_us} us, "
+            f"{first_us / (ms * 1e3):.2f}x] ({counted} count, {launches} "
+            f"device launches), plain version {plain_ms:.3f} ms ({plain_launches} "
+            f"launches); bound {bound[0] * 1e3:.1f} us ({bound[1]}) over "
+            f"every slot, {bound_live[0] * 1e3:.1f} us ({bound_live[1]}) "
+            f"over the live pairs; issue floor {floor * 1e3:.1f} / "
+            f"{floor_live * 1e3:.1f} us at {per_pair[5]:.2f} instructions a "
+            f"pair: kernel {ms / floor:.2f}x / {ms / floor_live:.2f}x the "
+            "floor")
         if not win_same:
             fail(f"_window_block {name}: the card's window differs from the "
                  "plain gather's")
@@ -2701,7 +2718,7 @@ def mesh_knn_phase(cfg, eng, frame, mo_row, per_pair) -> dict:
         if row is None:
             row = kernel_row("masked_knn", "knn.cu",
                              "vloam_tpu/lidar/knn.py:47", err, ms, plain_ms,
-                             bound)
+                             bound_live)
     print(f"[M1 masked_knn] 2 calls a grid a frame at one rank (2 rounds; "
           f"x D shards at D ranks): " + "; ".join(lines) + f" {clocks()}",
           flush=True)
@@ -3066,18 +3083,24 @@ def shortlist_phase() -> None:
         fail("L2: TF32 was left on")
 
 
-def bench_knn_phase() -> None:
+def bench_knn_phase(per_pair) -> None:
     """BK: tools/bench_knn at the script's four shapes: masked_knn (knn.cu)
-    and its plain version, bit for bit on the first 1024 queries."""
+    and its plain version, bit for bit on the first 1024 queries; bounds
+    and issue floors (phase 2's instructions a pair) over every slot and
+    over the live pairs."""
     from vloam_tpu_torch.tools import bench_knn
 
     t0 = time.perf_counter()
-    recs = bench_knn.run("cuda", runs=5, plain_runs=2)
+    recs = bench_knn.run("cuda", runs=5, plain_runs=2, per_pair=per_pair[5])
     print("[BK bench_knn] " + "; ".join(
-        f"{r['shape']} {r['Q']}x{r['C']}: kernel {r['ms']:.3f} ms, plain "
-        f"{r['plain_ms']:.3f} ms (peak {r['plain_peak_bytes'] / 2**20:.0f} "
-        f"MiB), bound {r['bound_ms'] * 1e3:.1f} us, first "
-        f"{r['checked_rows']} identical: {r['identical']}" for r in recs)
+        f"{r['shape']} {r['Q']}x{r['C']} ({r['live']} live): kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms (peak "
+        f"{r['plain_peak_bytes'] / 2**20:.0f} MiB), bound "
+        f"{r['bound_ms'] * 1e3:.1f} / {r['bound_live_ms'] * 1e3:.1f} us, "
+        f"issue floor {r['issue_floor_ms'] * 1e3:.1f} / "
+        f"{r['issue_floor_live_ms'] * 1e3:.1f} us (every slot / the live "
+        f"pairs), first {r['checked_rows']} identical: {r['identical']}"
+        for r in recs)
           + f" (in {time.perf_counter() - t0:.1f} s) {clocks()}", flush=True)
     if not all(r["identical"] for r in recs):
         fail("BK: masked_knn differs from its plain version")
@@ -3296,7 +3319,7 @@ def run_phases(t_start, card, knn_per_pair, cfg, cfg_v, calib, frames,
     timed("U", upload_phase)
     timed("DV", diag_vo_phase)
     timed("L2", shortlist_phase)
-    timed("BK", bench_knn_phase)
+    timed("BK", bench_knn_phase, knn_per_pair)
     print(f"[U-BK] phases U, DV, L2 and BK in "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
     total = time.perf_counter() - t_start

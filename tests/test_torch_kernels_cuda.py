@@ -807,6 +807,26 @@ def test_masked_knn_kernel_crafted_cases(cuda, case):
     _knn_same(case.queries, case.cands, case.mask, case.k, cuda)
 
 
+@pytest.mark.parametrize(
+    "case", [c for c in kernel_cases.knn_cases() if c.slices],
+    ids=lambda c: c.name)
+def test_masked_knn_kernel_at_the_cases_slices(cuda, case):
+    """The cases laid out by slice, launched at the slices they are laid
+    out for (not the wrapper's count): bit for bit with the plain version."""
+    from vloam_tpu_torch.kernels import build
+    from vloam_tpu_torch.lidar import knn
+    from vloam_tpu_torch.tools.profile_knn import launcher
+
+    q, c, m = (torch.from_numpy(a).to(cuda)
+               for a in (case.queries, case.cands, case.mask))
+    launch = launcher(str(build.build()), case.k)
+    d, i = launch(q, c, m, knn._padding(c.shape[0], case.k), None,
+                  slices=case.slices)
+    d_p, i_p = knn.masked_knn_plain(q, c, m, k=case.k)
+    assert torch.equal(i, i_p)
+    assert torch.equal(d.view(torch.int32), d_p.view(torch.int32))
+
+
 @pytest.mark.parametrize("Q,C,k,live", [(777, 70001, 5, 0.4),
                                         (129, 4099, 1, 0.9),
                                         (2050, 33333, 8, 0.1),
@@ -814,7 +834,7 @@ def test_masked_knn_kernel_crafted_cases(cuda, case):
 @pytest.mark.parametrize("blocks_per_sm", [4, 1, 16])
 def test_masked_knn_kernel_matches_plain(cuda, rng, monkeypatch, Q, C, k,
                                          live, blocks_per_sm):
-    """At the default slices (4 blocks an SM) and at other slice counts."""
+    """At 4, 1 and 16 slice blocks an SM."""
     monkeypatch.setattr(kernels, "KNN_BLOCKS_PER_SM", blocks_per_sm)
     q = rng.uniform(-80, 80, (Q, 3)).astype(np.float32)
     c = rng.uniform(-80, 80, (C, 3)).astype(np.float32)

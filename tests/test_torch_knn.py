@@ -17,7 +17,8 @@ CPU.
   across the reference's tile and the kernel's 256-slot tiles, queries on
   candidates, too few live or too few candidates, k = 1, 3, 5, 8), with the
   same tolerances; masked_knn on CPU tensors launches no kernel; the slices
-  the kernel's wrapper cuts cover the candidates.
+  the kernel's wrapper cuts cover the candidates; the cases laid out by
+  slice hold their layouts at the slices they name.
 - _window_block on a [16384, 96] block (2^17 buckets over 8 ranks, corner
   cap 32) holding live rows, empty rows and duplicated rows (equal keys):
   the rows taken, their points and mask bit for bit, and the active-row
@@ -115,6 +116,47 @@ def test_masked_knn_plain_matches_jax_on_crafted_cases(case):
         _assert_dist(d_t.numpy(), d_j)
     d, i = tknn.masked_knn(*args, k=case.k)  # the CPU dispatch
     assert torch.equal(d, d_t) and torch.equal(i, i_t)
+
+
+def _slice_tiles(case, s):
+    """The live flags of the 256-slot tiles slice s of case.slices holds, by
+    tile: [tiles of s, 256] (the last tile padded with masked slots)."""
+    m = np.zeros(-(-case.mask.size // 256) * 256, bool)
+    m[:case.mask.size] = case.mask
+    return m.reshape(-1, 256)[s::case.slices]
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in kernel_cases.knn_cases() if c.slices],
+    ids=lambda c: c.name)
+def test_sliced_cases_hold_their_layout(case):
+    """The cases laid out by slice hold at their `slices` what each one
+    claims (the card launches them at that count)."""
+    tiles = [_slice_tiles(case, s) for s in range(case.slices)]
+    if case.name == "masked_tiles_between_live":
+        for t in tiles:
+            assert len(t) == 3 and not t[1].any()
+            assert t[0].any() and t[2].any()
+    elif case.name == "slices_all_masked":
+        empty = {s for s, t in enumerate(tiles) if not t.any()}
+        assert empty == set(range(3, 10)) | {17} | set(range(25, 32))
+    elif case.name == "tie_at_the_published_bound":
+        # slice 1 live through its first tiles, slice 2 masked there; the
+        # tie in slice 1's third tile, below the index of slice 2's copies
+        assert tiles[1][:2].all() and not tiles[2][:2].any()
+        same = np.flatnonzero((case.cands == case.queries[-1]).all(1)
+                              & case.mask)
+        assert len(same) == 7
+        assert same[0] // 256 == 1 + 2 * case.slices
+        assert (same[1:] // 256 == 2 + 2 * case.slices).all()
+        assert (case.queries[-24:] == case.queries[-1]).all()
+    elif case.name == "few_live_k8_across_slices":
+        live = np.flatnonzero(case.mask)
+        assert len(live) < case.k
+        assert len({g // 256 % case.slices for g in live}) == len(live)
+    else:
+        assert case.name == "padding_k8"
+        assert case.cands.shape[0] < case.k
 
 
 def test_masked_knn_on_cpu_launches_nothing():
@@ -261,32 +303,56 @@ def test_rank_blocks_match_jax_devices(D):
     np.testing.assert_array_equal(back.cube.surf.pts, st.cube.surf.pts)
 
 
-_KNN_SASS = """
+_KNN_HEAD = """
 \t\tFunction : _ZN12_GLOBAL__N_116knn_slice_kernelILi5EEEvPKfS2_PKhiiiiPiS5_
         /*0000*/                   LDC R1, c[0x0][0x28] ;
         /*0010*/                   LDS.128 R4, [R2] ;
         /*0020*/                   FMUL R8, R5, R6 ;
         /*0030*/                   FADD R9, R8, R7 ;
         /*0040*/                   FSETP.LTU.OR P0, PT, R9, R3, P0 ;
+"""
+_KNN_TAIL = """
+\t\tFunction : _ZN12_GLOBAL__N_116knn_merge_kernelILi5EEEvPKiS2_iiPfPx
+        /*0000*/                   EXIT ;
+"""
+# the examination after the loop, reached by a forward branch out of it
+_KNN_EXAM_AFTER = """
         /*0050*/               @P0 BRA 0x90 ;
         /*0060*/                   IADD3 R2, R2, 0x40, RZ ;
         /*0070*/                   ISETP.GE.AND P1, PT, R2, 0x400, PT ;
         /*0080*/              @!P1 BRA 0x10 ;
         /*0090*/                   SEL R10, R11, R12, P2 ;
-        /*00a0*/               @P3 BRA 0x10 ;
-        /*00b0*/                   EXIT ;
-\t\tFunction : _ZN12_GLOBAL__N_116knn_merge_kernelILi5EEEvPKiS2_iiPfPx
-        /*0000*/                   EXIT ;
+        /*00a0*/                   SEL R10, R11, R12, P2 ;
+        /*00b0*/                   SEL R10, R11, R12, P2 ;
+        /*00c0*/               @P3 BRA 0x10 ;
+        /*00d0*/                   EXIT ;
+"""
+# the examination inside the loop, skipped by a forward branch to the step
+# increment
+_KNN_EXAM_INSIDE = """
+        /*0050*/              @!P0 BRA 0x90 ;
+        /*0060*/                   SEL R10, R11, R12, P2 ;
+        /*0070*/                   SEL R10, R11, R12, P2 ;
+        /*0080*/                   SEL R10, R11, R12, P2 ;
+        /*0090*/                   IADD3 R2, R2, 0x40, RZ ;
+        /*00a0*/                   ISETP.GE.AND P1, PT, R2, 0x400, PT ;
+        /*00b0*/              @!P1 BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+        /*00d0*/                   BRA 0xd0 ;
 """
 
 
-def test_knn_sass_counts_the_hot_loop():
+@pytest.mark.parametrize("body", [_KNN_EXAM_AFTER, _KNN_EXAM_INSIDE],
+                         ids=["exam_after", "exam_inside"])
+def test_knn_sass_counts_the_hot_loop(body):
     """kernels.build.knn_sass, which chip_smoke.py phase 2 prints: the slice
-    kernel's main loop is the innermost backward branch's body (not the
-    loop around it that holds the examination), per KNN_STEP slots."""
+    kernel's main loop is its hot path, the shortest way back to the head of
+    the loop that loads the most from shared memory, wherever the compiler
+    puts the examination (after the loop, or inside it behind a forward
+    branch), per KNN_STEP slots."""
     from vloam_tpu_torch.kernels import build
 
-    lines, per_pair = build.knn_sass(_KNN_SASS)
+    lines, per_pair = build.knn_sass(_KNN_HEAD + body + _KNN_TAIL)
     assert per_pair == {5: 8 / build.KNN_STEP}
-    assert lines == ["knn_slice_kernel<5> 12 instructions, main loop 8 for "
+    assert lines == ["knn_slice_kernel<5> 14 instructions, main loop 8 for "
                      f"16 slots = {8 / 16:.2f} a pair"]

@@ -485,7 +485,7 @@ def test_sass_report_finds_the_main_loop_and_conversions():
     fast = "ring_min1_packed_kernel<1,1,2,4,2>"
     assert sorted(fns) == ["ring_min1_packed_kernel<0,0,2,4,2>",
                            "ring_min1_packed_kernel<0,1,2,4,2>", fast]
-    assert [op for _, op, _ in fns[fast]] == [
+    assert [i.op for i in fns[fast]] == [
         "LDC", "LDS", "FFMA", "IMAD", "VIMNMX", "BRA", "BRA", "I2FP", "EXIT",
         "BRA"]
     assert build.hottest_loop(fns[fast]) == ["LDS", "FFMA", "IMAD", "VIMNMX",

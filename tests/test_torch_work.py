@@ -414,6 +414,11 @@ _BOUNDS = [
      "bytes"),
     (timing.knn_bound, (2048, 131072, 5), 0.02403899605970149, "operations"),
     (timing.knn_bound, (6144, 65536, 5), 0.03605849408955224, "operations"),
+    # M1's live slots: 16,887 corner and 19,917 surf (PERF.md section 6)
+    (timing.knn_bound, (2048, 131072, 5, 16887), 0.0030971262089552237,
+     "operations"),
+    (timing.knn_bound, (6144, 65536, 5, 19917), 0.01095851176119403,
+     "operations"),
     (timing.select_rings_bound, (64 * 1800, 64, kitti_hdl64().scanreg),
      0.0004127331343283582, "bytes"),
 ]
@@ -424,6 +429,19 @@ def test_kernel_bounds_keep_their_values(fn, args, ms, by):
     got_ms, got_by = fn(*args)
     assert got_by == by
     assert math.isclose(got_ms, ms, rel_tol=1e-12), (got_ms, ms)
+
+
+@pytest.mark.parametrize("Q,C,live,every,over_live", [
+    (2048, 131072, 16887, 0.07927709580655036, 0.010213869605142334),
+    (6144, 65536, 19917, 0.11891564370982552, 0.036139570247933885)])
+def test_knn_issue_floor_over_live_pairs(Q, C, live, every, over_live):
+    """masked_knn's issue floor at M1's windows and 9.88 instructions a
+    pair, over every slot and over the live pairs: Q x slots x 9.88 over
+    132 x 4 x 32 lanes at 1.98 GHz, in ms."""
+    assert math.isclose(timing.knn_issue_floor(Q, C, 9.88), every,
+                        rel_tol=1e-12)
+    assert math.isclose(timing.knn_issue_floor(Q, C, 9.88, live=live),
+                        over_live, rel_tol=1e-12)
 
 
 def _scan_cost(n: int) -> dict:

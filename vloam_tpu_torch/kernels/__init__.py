@@ -21,7 +21,8 @@ S2 grid_probe    (csrc/grid_probe.cu)   <- scripts/profile_pallas_gather.py::
                  under the map's inserts
    masked_knn    (csrc/knn.cu)          <- lidar/knn.py::masked_knn (XLA in
                  the reference): the mesh chunk's window sweep, the k
-                 nearest live candidates by (distance, index)
+                 nearest live candidates by (distance, index), masked slots
+                 packed out of the sweep, one bound a query across slices
 
 The wrappers here accept CUDA tensors only: they check device, dtype, shape
 and contiguity, allocate outputs with torch.empty, launch on PyTorch's
@@ -32,7 +33,8 @@ and is taken only for CPU tensors.
 
 ``LAUNCHES`` counts launches per kernel; each wrapper adds one exactly
 where its kernel is launched (masked_knn's is one call of its C entry
-point, which launches the slice kernel and the merge behind it).
+point, which zeroes the shared bounds and launches the slice kernel and
+the merge behind it).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ LAUNCHES = {"select_rings": 0, "ring_min2": 0, "zncc_describe": 0,
 KNN_THREADS = 128  # queries a block of knn.cu's slice kernel (kThreads)
 KNN_TILE = 256  # candidate slots a shared-memory tile (kTile)
 KNN_MAX_K = 8  # knn.cu instantiates k = 1 .. 8
-KNN_BLOCKS_PER_SM = 4  # slice blocks a masked_knn launch aims at per SM
+KNN_BLOCKS_PER_SM = 8  # slice blocks a masked_knn launch aims at per SM
 
 
 def reset_launches() -> None:
@@ -305,6 +307,12 @@ def knn_slices(Q: int, n_slots: int, n_sm: int,
     return min(want, -(-n_slots // KNN_TILE))
 
 
+def knn_scratch(slices: int, k: int, Q: int) -> int:
+    """The int32 words of masked_knn's scratch: each slice's k (distance
+    bits, index) pairs a query, and a query's shared bound."""
+    return (2 * slices * k + 1) * Q
+
+
 def masked_knn(queries: torch.Tensor, cands: torch.Tensor, mask: torch.Tensor,
                k: int, pad: int):
     """The k-NN sweep on the card: queries [Q, 3] f32, cands [C, 3] f32,
@@ -332,7 +340,8 @@ def masked_knn(queries: torch.Tensor, cands: torch.Tensor, mask: torch.Tensor,
     if Q == 0:
         return out_d, out_i
     slices = knn_slices(Q, C + pad, _sm_count(dev), KNN_BLOCKS_PER_SM)
-    scratch = torch.empty(2 * slices * k * Q, dtype=torch.int32, device=dev)
+    scratch = torch.empty(knn_scratch(slices, k, Q), dtype=torch.int32,
+                          device=dev)
     lib = build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

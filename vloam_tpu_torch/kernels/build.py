@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -191,8 +192,18 @@ def parse_report(log: str) -> dict[str, dict[str, int]]:
     return out
 
 
-_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                      r"([A-Z][A-Z0-9]*)(?:\.[A-Z0-9.]+)?\s*([^;]*);")
+_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9]*)((?:\.[A-Z0-9.]+)?)\s*([^;]*);")
+
+
+class Ins(NamedTuple):
+    """One machine instruction: address, opcode without its modifiers,
+    operands, whether a predicate guards it, the modifiers (".128")."""
+    addr: int
+    op: str
+    args: str
+    pred: bool
+    mods: str
 
 
 def cuobjdump() -> str:
@@ -206,34 +217,68 @@ def sass(so: str | Path) -> str:
                           capture_output=True, text=True, check=True).stdout
 
 
-def parse_sass(text: str) -> dict[str, list[tuple[int, str, str]]]:
+def parse_sass(text: str) -> dict[str, list[Ins]]:
     """Per kernel (named as resource_usage names them) its instructions in
-    order: (address, opcode without modifiers, operands)."""
+    order."""
     out = {}
     for part in text.split("Function : ")[1:]:
         name = _kernel_name(part.split(None, 1)[0])
-        out[name] = [(int(a, 16), op, args.strip())
-                     for a, op, args in _SASS_OP.findall(part)]
+        out[name] = [Ins(int(a, 16), op, args.strip(), bool(p), mods)
+                     for a, p, op, mods, args in _SASS_OP.findall(part)]
     return out
 
 
-def hottest_loop(ins: list[tuple[int, str, str]]) -> list[str]:
-    """The opcodes of a kernel's main loop: of its innermost loops (a
-    backward branch's target to the branch, with no other backward branch
-    inside), the longest (an unrolled main loop)."""
-    loops = []
-    for addr, op, args in ins:
-        m = re.match(r"(0x[0-9a-f]+)", args)
-        if op == "BRA" and m and int(m.group(1), 16) < addr:
-            loops.append((int(m.group(1), 16), addr))
-    best: list[str] = []
-    for lo, hi in loops:
-        if any(lo <= a < hi for _, a in loops if a != hi):
-            continue  # holds another loop
-        body = [o for a, o, _ in ins if lo <= a <= hi]
-        if len(body) > len(best):
-            best = body
+def hottest_loop(ins: list[Ins]) -> list[str]:
+    """The opcodes of a kernel's main loop on its hot path: of its loops
+    (each a backward branch's target), taken by the shortest way back to
+    the head, the one that loads the most bytes from shared memory (LDS,
+    LDS.64, LDS.128), and of those the shortest (an inner loop before the
+    loop around it). A
+    forward branch inside the loop, to an examination that runs only at
+    times, is left out wherever the compiler put its target."""
+    at = {i.addr: n for n, i in enumerate(ins)}
+    succ, heads = [], set()
+    for n, i in enumerate(ins):
+        nxt = [n + 1] if n + 1 < len(ins) else []
+        m = re.match(r"(0x[0-9a-f]+)", i.args)
+        if i.op == "BRA" and m and int(m.group(1), 16) in at:
+            t = at[int(m.group(1), 16)]
+            succ.append([t] + (nxt if i.pred else []))
+            if t <= n:
+                heads.add(t)
+        else:
+            succ.append([] if i.op in ("EXIT", "RET") and not i.pred
+                        else nxt)
+    best, score = [], (0, 0)
+    for h in sorted(heads):
+        parent, frontier, last = {h: h}, [h], None
+        while frontier and last is None:  # breadth first back to h
+            step = []
+            for n in frontier:
+                if h in succ[n]:
+                    last = n
+                    break
+                for s in succ[n]:
+                    if s not in parent:
+                        parent[s] = n
+                        step.append(s)
+            frontier = step
+        if last is None:
+            continue
+        cycle = [last]
+        while cycle[-1] != h:
+            cycle.append(parent[cycle[-1]])
+        cycle.reverse()
+        lds = sum(_lds_bytes(ins[n]) for n in cycle)
+        if (lds, -len(cycle)) > score:
+            best, score = [ins[n].op for n in cycle], (lds, -len(cycle))
     return best
+
+
+def _lds_bytes(i: Ins) -> int:
+    if i.op != "LDS":
+        return 0
+    return 16 if ".128" in i.mods else 8 if ".64" in i.mods else 4
 
 
 def packed_sass(text: str) -> tuple[list[str], list[str]]:
@@ -248,7 +293,7 @@ def packed_sass(text: str) -> tuple[list[str], list[str]]:
             continue
         product, fast, qpt, _, unroll = map(
             int, name[name.index("<") + 1:-1].split(","))
-        ops = [op for _, op, _ in ins]
+        ops = [i.op for i in ins]
         loop = hottest_loop(ins)
         f2i = ops.count("F2I")
         lines.append(f"{name} ({'product' if product else 'difference'}, "
@@ -263,23 +308,22 @@ def packed_sass(text: str) -> tuple[list[str], list[str]]:
 
 KNN_STEP = 16  # slots knn.cu's main loop tests a step (kStep)
 
-
 def knn_sass(text: str) -> tuple[list[str], dict[int, float]]:
     """knn_slice_kernel's instantiations in machine code (cuobjdump -sass
-    text): per k its instructions in all and in its main loop (the hot path,
-    KNN_STEP slots a step) and per (query, slot) pair there. Returns the
-    lines and the instructions a pair by k."""
+    text): per k its instructions in all and on its main loop's hot path
+    (hottest_loop: KNN_STEP slots a step, none passing) and per (query,
+    slot) pair there. Returns the lines and the instructions a pair by k."""
     lines, per_pair = [], {}
-    for name, ins in sorted(parse_sass(text).items()):
+    for name, ins in parse_sass(text).items():
         if not name.startswith("knn_slice_kernel<"):
             continue
         k = int(name[name.index("<") + 1:-1])
         loop = hottest_loop(ins)
         per_pair[k] = len(loop) / KNN_STEP
-        lines.append(f"{name} {len(ins)} instructions, main loop "
-                     f"{len(loop)} for {KNN_STEP} slots = {per_pair[k]:.2f} "
-                     "a pair")
-    return lines, per_pair
+        lines.append((k, f"{name} {len(ins)} instructions, main loop "
+                      f"{len(loop)} for {KNN_STEP} slots = "
+                      f"{per_pair[k]:.2f} a pair"))
+    return [line for _, line in sorted(lines)], per_pair
 
 
 def load() -> ctypes.CDLL:

@@ -15,7 +15,9 @@ probability 0.7. --scale N divides both counts by N (the CPU tests).
 For each shape: the kernel's time and the plain version's
 (masked_knn_plain, in its tiles of 2048 x 8192 pairs: a materialised
 surf distance matrix would take 20 GB; its peak allocation is printed), the
-bound (tools/timing.knn_bound), and the kernel against the plain version
+bound (tools/timing.knn_bound) over every pair and over the live pairs,
+on the card the issue floor at the machine code's instructions a pair
+(tools/timing.knn_issue_floor), and the kernel against the plain version
 on the first 1024 queries, distance bits and indices. On the CPU both
 columns run the plain version (CPU tensors take it) on the host clock.
 The script's knn_pallas branch imports a module the JAX package does not
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from ..lidar.knn import masked_knn, masked_knn_plain
-from .timing import card_line, device_ms, knn_bound
+from .timing import card_line, device_ms, knn_bound, knn_issue_floor
 
 SHAPES = (("surf", 16384, 307200), ("corner", 4096, 76800),
           ("lo_flat", 2048, 32768), ("lo_sharp", 1024, 8192))
@@ -61,8 +63,10 @@ def _host_ms(fn, runs: int) -> float:
 
 
 def run(device="cuda", scale: int = 1, runs: int = 20,
-        plain_runs: int = 3) -> list[dict]:
-    """Time and check every shape; returns a record a shape."""
+        plain_runs: int = 3, per_pair: float | None = None) -> list[dict]:
+    """Time and check every shape; returns a record a shape. With per_pair
+    (the slice kernel's main-loop instructions a pair, kernels.build.
+    knn_sass) the records carry the issue floors too."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' was asked for but "
@@ -92,12 +96,19 @@ def run(device="cuda", scale: int = 1, runs: int = 20,
             plain = _host_ms(lambda: masked_knn_plain(q, c, m, k=K),
                              plain_runs)
             peak = None
+        live = int(m.sum())
         bound, by = knn_bound(Q, C, K)
-        rec = {"shape": name, "Q": Q, "C": C, "live": int(m.sum()), "k": K,
+        bound_live, by_live = knn_bound(Q, C, K, live=live)
+        rec = {"shape": name, "Q": Q, "C": C, "live": live, "k": K,
                "ms": ms, "plain_ms": plain, "bound_ms": bound,
-               "bound_by": by, "checked_rows": n, "identical": same,
-               "plain_peak_bytes": peak,
+               "bound_by": by, "bound_live_ms": bound_live,
+               "bound_live_by": by_live, "checked_rows": n,
+               "identical": same, "plain_peak_bytes": peak,
                "clock": "device" if on_card else "host"}
+        if per_pair is not None:
+            rec["issue_floor_ms"] = knn_issue_floor(Q, C, per_pair)
+            rec["issue_floor_live_ms"] = knn_issue_floor(Q, C, per_pair,
+                                                         live=live)
         recs.append(rec)
         print(f"{name} {Q}x{C} ({rec['live']} live): masked_knn k={K} "
               f"{ms:9.3f} ms ({'knn.cu' if on_card else 'plain, CPU'}), "
@@ -105,7 +116,12 @@ def run(device="cuda", scale: int = 1, runs: int = 20,
               + (f" (peak {peak / 2**20:.0f} MiB: its tiles; a whole "
                  f"distance matrix {Q * C * 4 / 2**20:.0f} MiB)"
                  if peak is not None else "")
-              + f", bound {bound * 1e3:.4g} us ({by}); first {n} queries "
+              + f", bound {bound * 1e3:.4g} us ({by}) over every slot, "
+              f"{bound_live * 1e3:.4g} us ({by_live}) over the live pairs"
+              + (f", issue floor {rec['issue_floor_ms'] * 1e3:.4g} / "
+                 f"{rec['issue_floor_live_ms'] * 1e3:.4g} us"
+                 if per_pair is not None else "")
+              + f"; first {n} queries "
               f"{'identical' if same else 'DIFFER'} to the plain version",
               flush=True)
     return recs
@@ -122,9 +138,16 @@ def main(argv=None) -> int:
     ap.add_argument("--plain-runs", type=int, default=3,
                     help="calls a plain version's time (default 3)")
     args = ap.parse_args(argv)
-    card = card_line() if torch.device(args.device).type == "cuda" else "cpu"
+    on_card = torch.device(args.device).type == "cuda"
+    card = card_line() if on_card else "cpu"
     print(f"[bench_knn] device {card}", flush=True)
-    recs = run(args.device, args.scale, args.runs, args.plain_runs)
+    per_pair = None
+    if on_card:  # the machine code's count (cuobjdump beside nvcc)
+        from ..kernels import build
+
+        per_pair = build.knn_sass(build.sass(build.build()))[1][K]
+    recs = run(args.device, args.scale, args.runs, args.plain_runs,
+               per_pair)
     print(json.dumps({"tool": "bench_knn", "device": card, "shapes": recs}),
           flush=True)
     return 0 if all(r["identical"] for r in recs) else 1

@@ -73,6 +73,10 @@ class KnnCase(NamedTuple):
     # False for the mesh-window-sized case: held on the card only (2.7e8
     # pairs; the CPU tests hold the small cases against JAX)
     small: bool = True
+    # the slices the mask is laid out for (0: none; slice s holds the
+    # 256-slot tiles s, s + slices, ...): the card's tests launch the kernel
+    # at that count too
+    slices: int = 0
 
 
 class ZnccCase(NamedTuple):
@@ -619,6 +623,101 @@ def knn_window(rng, Q: int = 2048, rows: int = 4096, cap: int = 32,
                    pts, mask, 5, small=False)
 
 
+def _on_grid(a: np.ndarray) -> np.ndarray:
+    """a rounded to multiples of 1/16 m, float32."""
+    return (np.round(a * 16.0) / 16.0).astype(np.float32)
+
+
+def _set_tiles(mask: np.ndarray, t, live: bool) -> None:
+    """Every slot of the kernel's 256-slot tiles t live, or masked."""
+    mask.reshape(-1, 256)[t] = live
+
+
+def _sliced_cases(rng) -> list[KnnCase]:
+    """The kernel's masked-slot packing and shared bound, each laid out for
+    its `slices` S (slice s holds tiles s, s + S, s + 2S, ...)."""
+    cases = []
+
+    # whole tiles masked between live ones: every slice's middle tile. On
+    # a 1/16 m grid within 60 m every distance is exact in float32 in any
+    # order of sums, so only exact ties (lower index first) decide between
+    # candidates: at 80 m and 1024 queries x 101,376 slots, two distances
+    # 3e-3 m^2 apart round to one float here and apart in the reference
+    Q, S = 1024, 132
+    C = 3 * 256 * S
+    c, m = _on_grid(_cloud(rng, C, 60.0)), rng.random(C) < 0.6
+    _set_tiles(m, np.arange(S, 2 * S), False)
+    q = _on_grid(np.concatenate([c[rng.choice(np.flatnonzero(m), 512)]
+                                 + rng.normal(0, 0.3, (512, 3)),
+                                 _cloud(rng, Q - 512, 60.0)]))
+    cases.append(KnnCase("masked_tiles_between_live", q, c, m, 5,
+                         slices=S))
+
+    # slices whose dealt tiles are all masked (one tile a slice here)
+    Q, C = 300, 40 * 256
+    c, m = _cloud(rng, C), rng.random(C) < 0.5
+    _set_tiles(m, np.r_[3:10, 17, 25:32], False)
+    cases.append(KnnCase("slices_all_masked", _cloud(rng, Q), c, m, 5,
+                         slices=40))
+
+    # a live slot at exactly the k-th distance another slice publishes,
+    # with a lower index: slice 1's third tile holds one copy of p, slice
+    # 2's third tile six; slice 2's first tiles are masked (it publishes
+    # early), slice 1's live (it reads the bound before its third tile)
+    Q, S = 1024, 132
+    C = 3 * 256 * S
+    c, m = _cloud(rng, C), rng.random(C) < 0.5
+    _set_tiles(m, [1, 1 + S], True)
+    _set_tiles(m, [2, 2 + S], False)
+    p = _cloud(rng, 1)[0]
+    tie = (1 + 2 * S) * 256 + 200
+    copies = (2 + 2 * S) * 256 + np.arange(10, 16)
+    c[tie], c[copies] = p, p
+    m[tie], m[copies] = True, True
+    # every query near p (its 5 nearest: the tie and 4 of the six), 24 on it
+    q = np.concatenate([_near(rng, p, Q - 24, 0.01), np.tile(p, (24, 1))])
+    cases.append(KnnCase("tie_at_the_published_bound", q, c, m, 5,
+                         slices=S))
+
+    # fewer live candidates than k: every slice fills its list from its own
+    # masked slots, the merge keeps the lowest indices
+    C = 5 * 256 + 3
+    m = np.zeros(C, bool)
+    m[[260, 1030, 1282]] = True
+    cases.append(KnnCase("few_live_k8_across_slices", _cloud(rng, 130),
+                         _cloud(rng, C), m, 8, slices=6))
+    # and fewer candidates than k: the padding slots C, C + 1, ... after them
+    cases.append(KnnCase("padding_k8", _cloud(rng, 130), _cloud(rng, 5),
+                         np.array([False, True, False, False, True]), 8,
+                         slices=1))
+    return cases
+
+
+def _untame_cases(rng) -> list[KnnCase]:
+    """Coordinates beyond the kernel's 2^60 bound (finite; no product or sum
+    meets inf - inf): masked slots there are swept like live ones, and such
+    a query compares every masked slot with its distance. For the card only:
+    the JAX package's product rounds such values otherwise."""
+    c = _cloud(rng, 5000)
+    m = rng.random(5000) < 0.4
+    far = rng.choice(5000, 600, replace=False)
+    c[far[:300]] = np.float32(1e20)   # masked, beyond the bound: d = +inf
+    c[far[300:400], 1] = np.float32(-3e18)
+    m[far[:400]] = False
+    c[far[400:]] = np.float32(1e20)  # live and beyond: d = +inf
+    m[far[400:]] = True
+    cands = [KnnCase("untame_candidates", _cloud(rng, 300), c, m, 5,
+                     small=False)]
+    q = _cloud(rng, 300)
+    q[:40, 0] = np.float32(1e19)
+    q[40:60, 2] = np.float32(-2.0 ** 61)
+    q[60:70] = np.float32(3e18)
+    c = _cloud(rng, 6000)
+    m = rng.random(6000) < 0.3
+    m[:700] = False
+    return cands + [KnnCase("untame_queries", q, c, m, 8, small=False)]
+
+
 def knn_cases(seed: int = 16837) -> list[KnnCase]:
     """masked_knn's rules: equal distances (duplicated candidates) across
     the reference's 4096-slot tile and across every multiple of 256 slots
@@ -626,8 +725,12 @@ def knn_cases(seed: int = 16837) -> list[KnnCase]:
     candidates (d = 0 after the clamp), fewer live candidates than k, all
     masked, fewer candidates than k (the reference's padding indices C,
     C + 1, ... in the result), candidate counts no tile divides, k = 1, 3,
-    5 and 8 at 80 m coordinates; and one case of the mesh engine's corner
-    window shape (2048 x 4096 * 32 slots, mostly masked), for the card."""
+    5 and 8 at 80 m coordinates; the kernel's slices (_sliced_cases: whole
+    masked tiles, all-masked slices, a tie at a bound another slice
+    publishes, lists filled from masked slots across slices, padding);
+    coordinates beyond its 2^60 bound, for the card; and the mesh engine's
+    corner and surf window shapes (2048 x 4096 * 32 and 6144 x 4096 * 16
+    slots, mostly masked), for the card."""
     rng = np.random.default_rng(seed)
     cases = []
 
@@ -665,5 +768,7 @@ def knn_cases(seed: int = 16837) -> list[KnnCase]:
                        (8, 8191, 0.3)):
         cases.append(KnnCase(f"random_k{k}_C{C}", _cloud(rng, 300),
                              _cloud(rng, C), rng.random(C) < live, k))
+    cases += _sliced_cases(rng) + _untame_cases(rng)
     cases.append(knn_window(rng))
+    cases.append(knn_window(rng, Q=6144, cap=16))
     return cases

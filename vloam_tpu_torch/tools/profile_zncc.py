@@ -111,7 +111,7 @@ def sass_summary(so: str, match: str) -> str:
     for name, ins in build.parse_sass(build.sass(so)).items():
         if match not in name:
             continue
-        ops = [op for _, op, _ in ins if op in _SHOWN]
+        ops = [i.op for i in ins if i.op in _SHOWN]
         runs = []
         for o in ops[:48]:
             if runs and runs[-1][0] == o:

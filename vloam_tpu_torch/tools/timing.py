@@ -304,10 +304,11 @@ def zncc_bound(K: int, p: int, H: int, W: int) -> tuple[float, str]:
     return _bound(work.zncc(K, p, H, W))
 
 
-def knn_bound(Q: int, C: int, k: int) -> tuple[float, str]:
+def knn_bound(Q: int, C: int, k: int,
+              live: int | None = None) -> tuple[float, str]:
     """work.knn: lidar/knn.masked_knn of Q queries against C candidates,
-    every pair."""
-    return _bound(work.knn(Q, C, k))
+    every pair, or the Q x live pairs of the live candidates only."""
+    return _bound(work.knn(Q, C, k, None if live is None else Q * live))
 
 
 def _bound(ops_bytes: tuple[int, int]) -> tuple[float, str]:
@@ -329,10 +330,12 @@ def roofline(ops: float, ops_f64: float, n_bytes: float,
             "bound_ms": max(hbm, flop) / fps * 1e3}
 
 
-def knn_issue_floor(Q: int, C: int, per_pair: float) -> float:
+def knn_issue_floor(Q: int, C: int, per_pair: float,
+                    live: int | None = None) -> float:
     """kernels/csrc/knn.cu's issue floor in ms: the least time an H100
     takes to issue per_pair instructions (its main loop's, as
     kernels.build.knn_sass counts the machine code) for each of Q x C
-    (query, slot) pairs, every scheduler issuing every clock at the maximum
-    SM clock."""
-    return Q * C * per_pair / (H100_LANES * H100_SM_HZ) * 1e3
+    (query, slot) pairs, or of the Q x live pairs of the live candidates
+    only, every scheduler issuing every clock at the maximum SM clock."""
+    pairs = Q * (C if live is None else live)
+    return pairs * per_pair / (H100_LANES * H100_SM_HZ) * 1e3
