@@ -2732,29 +2732,29 @@ def mesh_rank_main(backend: str, inp: str, out: str) -> None:
     to OUT."""
     from vloam_tpu_torch.config import kitti_hdl64
     from vloam_tpu_torch.lidar.loam_step import LoamEngine
-    from vloam_tpu_torch.parallel.sharded import data_mesh
+    from vloam_tpu_torch.parallel.sharded import spmd_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     data = np.load(inp)
     frames = [data[f"f{k}"] for k in range(len(data.files))]
-    mesh = data_mesh(device="cuda", backend=backend)
     half = len(frames) // 2
-    eng = LoamEngine(kitti_hdl64(), chunk=half, mesh=mesh,
-                     mesh_window_rows=MESH_WINDOW)
-    for k in range(half):
-        eng.push_polar(frames[k])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, syncs = _sync_free(lambda k: eng.push_polar(frames[k]),
-                          range(half, len(frames)))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    rows = eng.finish()
-    if mesh.rank == 0:
-        np.savez(out, rows=rows, syncs=len(syncs), fps=half / dt,
-                 window=np.asarray(eng.window_active_rows),
-                 device=str(mesh.device))
+    with spmd_mesh(device="cuda", backend=backend) as mesh:
+        eng = LoamEngine(kitti_hdl64(), chunk=half, mesh=mesh,
+                         mesh_window_rows=MESH_WINDOW)
+        for k in range(half):
+            eng.push_polar(frames[k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, syncs = _sync_free(lambda k: eng.push_polar(frames[k]),
+                              range(half, len(frames)))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rows = eng.finish()
+        if mesh.rank == 0:
+            np.savez(out, rows=rows, syncs=len(syncs), fps=half / dt,
+                     window=np.asarray(eng.window_active_rows),
+                     device=str(mesh.device))
 
 
 def mesh_ranks_phase(frames, outs_m2) -> None:
@@ -3290,23 +3290,25 @@ def run_phases(t_start, card, knn_per_pair, cfg, cfg_v, calib, frames,
     timed("V4", batched_selection_phase, cfg, frames, poses)
     timed("V5", ransac_phase)
     # the mesh: one NCCL rank on this card, in this process
-    from vloam_tpu_torch.parallel.sharded import data_mesh
+    from vloam_tpu_torch.parallel.sharded import spmd_mesh
 
     t_mesh = time.perf_counter()
-    mesh = data_mesh()
-    outs_m2, eng_m2, launches_m2 = timed("M2", mesh_engine_phase, cfg,
-                                         frames, poses, outs_gpu, mesh)
-    knn = timed("M1", mesh_knn_phase, cfg, eng_m2, frames[N_FRAMES - 1],
-                outs_m2[-1], knn_per_pair)
-    del eng_m2
-    timed("M3", mesh_ranks_phase, frames, outs_m2)
-    timed("M4", mesh_vloam_phase, cfg_v, frames, images, calib, res_v, mesh)
-    timed("M5", mesh_loop_phase, cfg, frames, res_host, loops, mesh)
-    # the frames of MS and of the phases after M come from the prerender
-    timed("prerender wait", stop_prerender, pre, wait=True)
-    timed("MS", mesh_model_phase)
-    timed("MB", bench_mesh_phase)
-    torch.distributed.destroy_process_group()
+    with spmd_mesh() as mesh:  # the group ends after MB
+        outs_m2, eng_m2, launches_m2 = timed("M2", mesh_engine_phase, cfg,
+                                             frames, poses, outs_gpu, mesh)
+        knn = timed("M1", mesh_knn_phase, cfg, eng_m2, frames[N_FRAMES - 1],
+                    outs_m2[-1], knn_per_pair)
+        del eng_m2
+        timed("M3", mesh_ranks_phase, frames, outs_m2)
+        timed("M4", mesh_vloam_phase, cfg_v, frames, images, calib, res_v,
+              mesh)
+        timed("M5", mesh_loop_phase, cfg, frames, res_host, loops, mesh)
+        # the frames of MS and of the phases after M come from the prerender
+        timed("prerender wait", stop_prerender, pre, wait=True)
+        timed("MS", mesh_model_phase)
+        timed("MB", bench_mesh_phase)
+    if torch.distributed.is_initialized():
+        fail("the mesh phases' process group outlived them")
     print(f"[M] phases M1-M5, MS and MB in "
           f"{time.perf_counter() - t_mesh:.1f} s", flush=True)
     t_eval = time.perf_counter()

@@ -30,7 +30,9 @@ with one core between them (the engine at 4 ranks: 89.9 s, each rank
 registering and associating all 6 frames on the CPU's plain kernels), so
 the ranks may run on a quarter of a core under the suite's -n 6 load. At
 110 s, 1.2x the one-core time, that case failed under a loaded run of the
-suite.
+suite. Every rank ends its process group through sharded.spmd_mesh before
+it exits (tests/test_torch_mesh_teardown.py): ranks that left theirs to
+interpreter exit aborted now and then after their work was done.
 
 - launch() itself: a rank that fails is reported with its code and
   stderr, the others killed; the ranks join the launcher's store, so

@@ -80,11 +80,11 @@ def pose_graph(mesh, data):
 
 
 def main(case: str, inp: str, out: str) -> None:
-    mesh = sharded.data_mesh(device="cpu", timeout_s=COLLECTIVE_S)
-    result = {"alignment": alignment, "engine": engine,
-              "pose_graph": pose_graph}[case](mesh, np.load(inp))
-    if mesh.rank == 0:
-        np.savez(out, **result)
+    with sharded.spmd_mesh(device="cpu", timeout_s=COLLECTIVE_S) as mesh:
+        result = {"alignment": alignment, "engine": engine,
+                  "pose_graph": pose_graph}[case](mesh, np.load(inp))
+        if mesh.rank == 0:
+            np.savez(out, **result)
 
 
 if __name__ == "__main__":

@@ -266,14 +266,19 @@ def _synthetic_setup(n, cfg, mode):
 
 def _launch_ranks(n: int, argv: list[str]) -> int:
     """Run this command line as n ranks (parallel/launch.py) and return the
-    first nonzero exit code, or 0."""
+    first nonzero exit code, or 0; a failure names each rank's exit code and
+    the end of its stderr."""
     from .parallel.launch import launch
 
     env = dict(os.environ)
     root = str(Path(__file__).resolve().parent.parent)
     env["PYTHONPATH"] = os.pathsep.join(
         [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-    return launch(["-m", "vloam_tpu_torch", *argv], n, env=env).code
+    run = launch(["-m", "vloam_tpu_torch", *argv], n, env=env)
+    if run.code:
+        print(f"--mesh {n}: the ranks exited {run.code}\n{run.report()}",
+              file=sys.stderr, flush=True)
+    return run.code
 
 
 def main(argv=None):
@@ -312,8 +317,6 @@ def main(argv=None):
                  "run the plain PyTorch versions on the CPU")
     from .config import (HDL32, VLP16, PipelineConfig, kitti_hdl64,
                          reference_exact, tiny_test_profile)
-    from .pipeline import run_sequence, run_sequence_fused
-    from .runtime.profiling import summarize_timings
 
     if args.reference_exact:
         if args.sensor != "hdl64":
@@ -371,6 +374,28 @@ def main(argv=None):
             for f in frame_iter
         )
 
+    if not args.mesh:
+        return _run(args, cfg, calib, frame_iter, get_points, gt_poses)
+    from .parallel.sharded import spmd_mesh
+
+    # every rank ends the group, on success and on error
+    with spmd_mesh(device=args.device) as mesh:
+        if mesh.size != args.mesh:
+            ap.error(f"--mesh {args.mesh}, but the process group has "
+                     f"{mesh.size} ranks")
+        if mesh.rank != 0:  # rank 0 alone writes files
+            args.out = None
+        return _run(args, cfg, calib, frame_iter, get_points, gt_poses, mesh)
+
+
+def _run(args, cfg, calib, frame_iter, get_points, gt_poses,
+         mesh=None) -> int:
+    """Drive the sequence, print the summaries and metrics; mesh: this
+    rank's Mesh under --mesh."""
+    from . import kernels
+    from .pipeline import run_sequence, run_sequence_fused
+    from .runtime.profiling import summarize_timings
+
     def progress(k, info):
         if args.verbose:
             print(f"frame {k}: {info['t_frame_ms']:.1f} ms "
@@ -378,18 +403,6 @@ def main(argv=None):
                   f"lo {info.get('t_lo_ms', 0):.1f}, "
                   f"mo {info.get('t_mo_ms', 0):.1f})", flush=True)
 
-    from . import kernels
-
-    mesh = None
-    if args.mesh:
-        from .parallel.sharded import data_mesh
-
-        mesh = data_mesh(device=args.device)
-        if mesh.size != args.mesh:
-            ap.error(f"--mesh {args.mesh}, but the process group has "
-                     f"{mesh.size} ranks")
-        if mesh.rank != 0:  # rank 0 alone writes files
-            args.out = None
     kernels.reset_launches()
     ctx = None
     if args.profile:

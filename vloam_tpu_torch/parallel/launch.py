@@ -4,7 +4,8 @@ The JAX reference drives all its devices from one process; the port runs
 one process per rank (parallel/sharded.py). launch() starts N copies of a
 Python command line under sys.executable with torchrun's environment (RANK,
 LOCAL_RANK, WORLD_SIZE, LOCAL_WORLD_SIZE, MASTER_ADDR=127.0.0.1,
-MASTER_PORT; OMP_NUM_THREADS, where unset, shares the cores out), so
+MASTER_PORT; OMP_NUM_THREADS, where unset, shares out the cores the
+launcher may run on), so
 ``sharded.data_mesh()`` in each builds the group. As torchrun's agent does,
 the launcher itself hosts the group's TCPStore, bound to a port the system
 picks and held open until the ranks are done, and
@@ -56,9 +57,14 @@ def rank_env(rank: int, n: int, port: int, base=None) -> dict:
     env.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(n),
                LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(port), TORCHELASTIC_USE_AGENT_STORE="True")
-    # the ranks share the cores: oversubscribed OpenMP pools stall every
-    # small op (as torchrun, which sets 1)
-    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))
+    # the ranks share the cores this process may run on (its affinity, not
+    # the host's count): oversubscribed OpenMP pools stall every small op
+    # (as torchrun, which sets 1)
+    cores = len(os.sched_getaffinity(0))
+    env.setdefault("OMP_NUM_THREADS", str(max(1, cores // n)))
+    # a rank that dies on a signal (an abort in C++) prints its Python
+    # stack to the stderr its report keeps
+    env.setdefault("PYTHONFAULTHANDLER", "1")
     return env
 
 

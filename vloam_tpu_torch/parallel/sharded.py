@@ -27,7 +27,10 @@ sharded_point_to_plane_gn is the reference's demonstration of the psum'd
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import os
+from collections.abc import Iterator
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import ClassVar
@@ -44,9 +47,12 @@ TIMEOUT_S = 300.0  # every collective of a mesh gives up after this long
 @dataclass(frozen=True)
 class Mesh:
     """One rank's handle on a 1-D device mesh (the reference's Mesh with
-    its one axis "data")."""
+    its one axis "data"). group is None for the default process group,
+    which the Mesh does not hold: a group object kept alive here would keep
+    the backend's threads running after destroy_process_group() (see
+    spmd_mesh)."""
 
-    group: object  # torch.distributed ProcessGroup
+    group: object  # a torch.distributed ProcessGroup, or None: the default
     rank: int
     size: int
     device: torch.device
@@ -98,13 +104,19 @@ def data_mesh(group=None, device="cuda", backend: str | None = None,
     dev_type = torch.device(device).type
     backend = backend or ("nccl" if dev_type == "cuda" else "gloo")
     if group is None and not dist.is_initialized():
+        # torch.distributed.nn.functional binds group.WORLD into its
+        # functions' defaults when it is imported; imported while the group
+        # lives (torch._dynamo imports it, at the pose graph's first
+        # torch.func.jacfwd), it keeps the group and the backend's threads
+        # alive past destroy_process_group(): import it first
+        importlib.import_module("torch.distributed.nn.functional")
+
         kw = {"backend": backend, "timeout": timedelta(seconds=timeout_s)}
         if "RANK" in os.environ:
             dist.init_process_group(init_method="env://", **kw)
         else:
             dist.init_process_group(store=dist.HashStore(), rank=0,
                                     world_size=1, **kw)
-    group = dist.group.WORLD if group is None else group
     have = dist.get_backend(group)
     if have != backend:
         raise ValueError(f"the process group runs {have!r}, {backend!r} was "
@@ -115,6 +127,41 @@ def data_mesh(group=None, device="cuda", backend: str | None = None,
     dev = _rank_device(device, backend, local, size)
     return Mesh(group=group, rank=rank, size=size, device=dev,
                 backend=backend)
+
+
+@contextlib.contextmanager
+def spmd_mesh(device="cuda", backend: str | None = None,
+              timeout_s: float = TIMEOUT_S) -> Iterator[Mesh]:
+    """data_mesh(device, backend, timeout_s) for the length of a with-block;
+    the way an SPMD program starts and ends its default process group.
+
+    Where the block initialised the group, it ends it on the way out: after
+    a normal exit a barrier, so no rank tears its connections down while
+    another still reads from them, then destroy_process_group(). The Mesh
+    holds no reference to the default group, so that frees the group and
+    joins the backend's threads (gloo's TCP loop and its two workers) while
+    the interpreter is whole. A gloo worker still running at interpreter
+    exit that frees a finished collective's tensors must take the GIL;
+    Python 3.12 ends such a thread with pthread_exit, whose unwinding
+    aborts the rank after its work is done ("terminate called without an
+    active exception"). After an exception the block skips the barrier,
+    which the other ranks may never reach, and destroys the group; the
+    exception goes on. A group that existed before the block belongs to its
+    creator and is left as it is."""
+    owner = not dist.is_initialized()
+    try:
+        mesh = data_mesh(device=device, backend=backend, timeout_s=timeout_s)
+        yield mesh
+    except BaseException:
+        if owner and dist.is_initialized():
+            dist.destroy_process_group()
+        raise
+    if owner:
+        try:
+            dist.barrier(device_ids=[mesh.device.index]
+                         if mesh.backend == "nccl" else None)
+        finally:
+            dist.destroy_process_group()
 
 
 def mesh_device(mesh: Mesh, device) -> torch.device:
@@ -141,8 +188,9 @@ def ppermute_ring(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         return x
     send = x.cpu() if mesh.host_hops else x.contiguous()
     recv = torch.empty_like(send)
-    dst = dist.get_global_rank(mesh.group, (mesh.rank + 1) % mesh.size)
-    src = dist.get_global_rank(mesh.group, (mesh.rank - 1) % mesh.size)
+    dst, src = ((mesh.rank + d) % mesh.size for d in (1, -1))
+    if mesh.group is not None:
+        dst, src = (dist.get_global_rank(mesh.group, r) for r in (dst, src))
     for work in dist.batch_isend_irecv([
             dist.P2POp(dist.isend, send, dst, mesh.group),
             dist.P2POp(dist.irecv, recv, src, mesh.group)]):

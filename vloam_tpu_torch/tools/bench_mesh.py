@@ -201,15 +201,15 @@ def _load_frame(path, device) -> dict:
 def rank_main(inp: str, out: str, device: str, backend: str,
               reps: int) -> None:
     """One rank of a D > 1 run (started by parallel/launch.py)."""
-    from ..parallel.sharded import data_mesh
+    from ..parallel.sharded import spmd_mesh
 
     torch.set_num_threads(max(1, int(os.environ.get("OMP_NUM_THREADS",
                                                     "1"))))
-    mesh = data_mesh(device=device, backend=backend)
-    frame = _load_frame(inp, mesh.device)
-    res = mesh_solve(mesh, frame, mesh_cfg(), reps)
-    if mesh.rank == 0:
-        np.savez(out, **res, device=str(mesh.device))
+    with spmd_mesh(device=device, backend=backend) as mesh:
+        frame = _load_frame(inp, mesh.device)
+        res = mesh_solve(mesh, frame, mesh_cfg(), reps)
+        if mesh.rank == 0:
+            np.savez(out, **res, device=str(mesh.device))
 
 
 def _rank_env() -> dict:
@@ -225,7 +225,7 @@ def run(device="cuda", sizes=(1, 2, 4), reps: int = 3,
     """Every mesh size; returns the JSON record (rows a size)."""
     from ..lidar.loam_step import engine_device
     from ..parallel.launch import launch
-    from ..parallel.sharded import data_mesh
+    from ..parallel.sharded import spmd_mesh
 
     dev = engine_device(device)
     cfg = mesh_cfg()
@@ -243,8 +243,8 @@ def run(device="cuda", sizes=(1, 2, 4), reps: int = 3,
             t1 = time.perf_counter()
             if D == 1:
                 backend = "nccl" if dev.type == "cuda" else "gloo"
-                res = mesh_solve(data_mesh(device=dev.type), frame, cfg,
-                                 reps)
+                with spmd_mesh(device=dev.type) as mesh:
+                    res = mesh_solve(mesh, frame, cfg, reps)
                 how = f"1 {backend} rank in this process"
             else:
                 out = os.path.join(tmp, f"out{D}.npz")

@@ -220,17 +220,23 @@ def run(device="cuda", tiny: bool = False, window_rows: int = 4096,
         runs: int = 3, replays: int = 20, frames=None) -> dict:
     """Measure, split, count and model; returns the JSON record. frames:
     the script's 4 range images where the caller has them."""
-    from ..data import synthetic
-    from ..lidar.loam_step import LoamEngine, engine_device
-    from ..parallel.sharded import data_mesh
-    from .profile_stages import mapping_stage
+    from ..lidar.loam_step import engine_device
+    from ..parallel.sharded import spmd_mesh
 
     dev = engine_device(device)
+    with spmd_mesh(device=dev.type) as mesh:
+        return _measure(mesh, dev, tiny, window_rows, runs, replays, frames)
+
+
+def _measure(mesh, dev, tiny, window_rows, runs, replays, frames) -> dict:
+    from ..data import synthetic
+    from ..lidar.loam_step import LoamEngine
+    from .profile_stages import mapping_stage
+
     cfg, n_az = profile(tiny)
     mcfg = cfg.mapping
     S = cfg.lidar.n_scans
     table = StageTable("model_mesh_scaling", dev, runs, replays, tiny)
-    mesh = data_mesh(device=dev.type)
     frames = frames if frames is not None else drive(S, n_az, workers(tiny))
     t0 = time.perf_counter()
     eng = LoamEngine(cfg, chunk=2, mesh=mesh, mesh_window_rows=window_rows,

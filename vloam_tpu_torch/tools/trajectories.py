@@ -58,13 +58,13 @@ def save(path: str) -> None:
         eng.push_polar(f)
     out = {"LoamEngine": eng.finish()}
 
-    from vloam_tpu_torch.parallel.sharded import data_mesh
+    from vloam_tpu_torch.parallel.sharded import spmd_mesh
 
-    meng = LoamEngine(cfg, chunk=5, mesh=data_mesh(), mesh_window_rows=4096)
-    for f in frames:
-        meng.push_polar(f)
-    out["LoamEngine(mesh=)"] = meng.finish()
-    torch.distributed.destroy_process_group()
+    with spmd_mesh() as mesh:
+        meng = LoamEngine(cfg, chunk=5, mesh=mesh, mesh_window_rows=4096)
+        for f in frames:
+            meng.push_polar(f)
+        out["LoamEngine(mesh=)"] = meng.finish()
 
     nb, nf = N_BATCH
     beng = BatchLoamEngine(cfg, nb, chunk=3, device="cuda")
