@@ -21,6 +21,12 @@ Phases (one line each; any failure ends the run with a nonzero exit):
   frames: a 32-frame synthetic HDL-64 polar drive (64 x 1800) with its
      1242 x 375 camera images, and three more 20-frame polar drives for the
      batch engine's other streams, rendered in worker processes
+  G. the ray-direction tables LoamEngine, BatchLoamEngine and VloamEngine
+     (full and camera FOV) build at their first push_polar on the card
+     (on the host, with the C library's cosf / sinf, then uploaded), and
+     frame 0's polar layout (points, rel_time, counts), equal to the CPU
+     build bit for bit; how many table elements the old build on the card
+     (torch.cos / torch.sin) differed by
   warm-up: ~3 s of matmuls so that the timed phases start on a busy card
   3. K1 select_rings vs its plain PyTorch version on real frame layouts and
      on the crafted cases of vloam_tpu_torch/tools/kernel_cases.py (windows
@@ -518,6 +524,79 @@ def frame_features(cfg, frames, dirs):
         feats = sr.register_scan_polar(r, dirs, cfg.lidar, cfg.scanreg)
         out.append((curv, bf, counts, feats))
     return out
+
+
+def geometry_phase(cfg, cfg_v, calib, frames, images) -> None:
+    """G: the direction tables each engine builds at its first push_polar
+    on the card, and a frame's polar layout (points, rel_time), equal to
+    the CPU build bit for bit; how many elements the old build on the card
+    (torch.cos / torch.sin of the device's azimuths) differed by."""
+    import math
+
+    from vloam_tpu_torch.data.synthetic import hdl64_elevations
+    from vloam_tpu_torch.lidar.loam_step import (BatchLoamEngine, LoamEngine,
+                                                 _polar_dirs)
+    from vloam_tpu_torch.lidar.scan_registration import polar_layout
+    from vloam_tpu_torch.vloam_step import PolarGeometry, VloamEngine
+
+    def bits(t):
+        return t.detach().cpu().contiguous().view(torch.int32)
+
+    def same(a, b) -> bool:
+        return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    elev = np.radians(hdl64_elevations(64)).astype(np.float32)
+    frac = cfg_v.vo.polar_fov_fraction
+    geom = PolarGeometry.create(elev, N_AZ, frac, "cpu")
+    want = {"LoamEngine": _polar_dirs(cfg, N_AZ, None, "cpu"),
+            "VloamEngine FOV": geom.fov_dirs}
+    want["BatchLoamEngine"] = want["VloamEngine"] = geom.dirs
+    eng = LoamEngine(cfg, chunk=2)
+    eng.push_polar(frames[0])  # under the chunk: builds the table only
+    beng = BatchLoamEngine(cfg, BATCH, chunk=2)
+    beng.push_polar(0, frames[0])
+    veng = VloamEngine(cfg_v, calib, chunk=2)
+    veng.push_polar(frames[0], images[0])
+    got = {"LoamEngine": eng._dirs, "BatchLoamEngine": beng._dirs,
+           "VloamEngine": veng._geom.dirs,
+           "VloamEngine FOV": veng._geom.fov_dirs}
+    del eng, beng, veng
+    for name, t in got.items():
+        if t.device.type != "cuda" or not same(t, want[name]):
+            fail(f"{name}'s direction table on the card is not the CPU "
+                 f"build's")
+    img = torch.from_numpy(frames[0].astype(np.int32))
+    lay = [polar_layout(img.to(dev), dirs, cfg.lidar)
+           for dev, dirs in (("cuda", got["LoamEngine"]),
+                             ("cpu", want["LoamEngine"]))]
+    for name, a, b in zip(("points", "rel_time", "counts"), *lay):
+        if not same(a, b):
+            fail(f"the polar layout's {name} differ card vs CPU")
+    # the build that ray_directions on the host replaced, on the card
+    el = torch.from_numpy(elev).cuda()
+    step = float(np.float32(2.0 * math.pi) / np.float32(N_AZ))
+
+    def old_table(az):
+        ce, se, ca, sa = torch.cos(el), torch.sin(el), torch.cos(az), \
+            torch.sin(az)
+        return torch.stack([ce[:, None] * ca[None, :],
+                            ce[:, None] * sa[None, :],
+                            se[:, None].expand(64, az.shape[0])], dim=-1)
+
+    col = torch.arange(N_AZ, dtype=torch.float32, device="cuda")
+    az_fov = -(col * (2.0 * math.pi / N_AZ))
+    if geom.half:
+        az_fov = torch.cat([az_fov[:geom.half], az_fov[N_AZ - geom.half:]])
+    for name, old, new in (("full", old_table(-(col * step)), geom.dirs),
+                           ("FOV", old_table(az_fov), geom.fov_dirs)):
+        n = int((bits(old) != bits(new)).sum())
+        print(f"[G] {name} table 64 x {new.shape[1]}: the old build on the "
+              f"card (torch.cos / torch.sin) differs from the host build on "
+              f"{n} of {new.numel()} elements ({100.0 * n / new.numel():.2f} "
+              f"%)", flush=True)
+    print(f"[G] direction tables of LoamEngine, BatchLoamEngine and "
+          f"VloamEngine (full, FOV) and frame 0's polar layout (points, "
+          f"rel_time, counts): card = CPU bit for bit", flush=True)
 
 
 def k1_phase(cfg, ff) -> dict:
@@ -3241,6 +3320,7 @@ def run_phases(t_start, card, knn_per_pair, cfg, cfg_v, calib, frames,
     elev = torch.tensor(np.radians(hdl64_elevations(64)),
                         dtype=torch.float32, device="cuda")
     ff = frame_features(cfg, frames[:3], polar_directions(elev, N_AZ))
+    timed("G", geometry_phase, cfg, cfg_v, calib, frames, images)
     timed("warm-up", warm_up)
     k1 = timed("3", k1_phase, cfg, ff)
     (k2, s1_min1, packed, err_argmin2), shapes = timed("4", ring_phase, ff)

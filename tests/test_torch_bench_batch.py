@@ -10,12 +10,9 @@ scripts/bench_extras.py::bench_batch) on the CPU at small sizes.
 - The port's BatchLoamEngine(pack12=True, quantize_mm=5.0) on the bench's 3
   cm frames against the JAX package's BatchLoamEngine with the same
   arguments at config.tiny_test_profile(): t_w_lo within 1e-3 m, t_w_mo
-  within 1e-2 m (tests/test_torch_batch_engine.py's tolerances). The port's
-  engine decodes with the JAX package's ray directions, as
-  tests/test_torch_scan_registration.py compares the polar path: the two
-  packages' float32 sin / cos differ by an ulp on ~5% of the columns,
-  which reorders near-tied flat picks; on 16 x 360 rays at 3 cm that alone
-  moved LO by up to 8.9 mm (with the same directions: 8.2e-6 m).
+  within 1e-2 m (tests/test_torch_batch_engine.py's tolerances), each
+  engine with its own ray directions (equal bit for bit:
+  tests/test_torch_polar_geometry.py).
 - The cache: a second call reads the streams back, another mode or stream
   misses it.
 - bench_batch's window check, and run()'s batch keys: a failed mode goes
@@ -25,8 +22,6 @@ scripts/bench_extras.py::bench_batch) on the CPU at small sizes.
 import math
 import tempfile
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -83,22 +78,9 @@ def test_batch_drives_equal_bench_extras_streams(tmp_cache, pack):
     assert not np.array_equal(got[0][1], got[1][1])
 
 
-@jax.jit
-def _jax_dirs(elev):
-    """The JAX package's ray directions [S, A, 3]
-    (vloam_tpu/lidar/scan_registration.py::register_scan_polar's)."""
-    az = -jnp.linspace(0.0, 2.0 * jnp.pi, A, endpoint=False)
-    ce, se = jnp.cos(elev), jnp.sin(elev)
-    ca, sa = jnp.cos(az), jnp.sin(az)
-    return jnp.stack([ce[:, None] * ca[None, :], ce[:, None] * sa[None, :],
-                      jnp.broadcast_to(se[:, None], (S, A))], axis=-1)
-
-
 def test_batch_pack12_engine_on_bench_frames_matches_jax(tmp_cache):
     batch, n, chunk = 2, 4, 2
     streams = bench.batch_drives(batch, n, S, A, True, workers=1)
-    elev = np.radians(jsyn.hdl64_elevations(S)).astype(np.float32)
-    dirs = torch.from_numpy(np.array(_jax_dirs(jnp.asarray(elev))))
 
     def run(eng):
         for k in range(n):
@@ -112,7 +94,6 @@ def test_batch_pack12_engine_on_bench_frames_matches_jax(tmp_cache):
                                      pack12=True))
     eng = tls.BatchLoamEngine(tcfg.tiny_test_profile(), batch, chunk=chunk,
                               quantize_mm=5.0, pack12=True, device="cpu")
-    eng._dirs = dirs  # the reference's directions, as the docstring says
     outs_t = run(eng)
     assert outs_t.shape == (batch, n, 24) and np.isfinite(outs_t).all()
     for b in range(batch):

@@ -15,10 +15,10 @@ scan_registration) with the JAX reference at the tiny test profile.
   rule is the same, np_loam.select_ring_np: labels identical.
 - register_scan and register_scan_polar: labels, masks, ring ids and voxel
   membership exact; points, relative times and slab centroids to 1e-5.
-  The polar path is compared on the same ray directions: the two packages'
-  float32 sin/cos differ by an ulp on ~5% of the columns, and an ulp in a
-  point moves the prefix-sum curvature of its neighbours enough to reorder
-  near-tied flat picks; polar_directions itself agrees to 1e-6.
+  The polar path runs on each package's own ray directions, which are
+  equal bit for bit (tests/test_torch_polar_geometry.py): an ulp in a point
+  would move the prefix-sum curvature of its neighbours enough to reorder
+  near-tied flat picks.
 - The batched selection (strict_sector_order=False), select_rings_batched,
   equals the reference's vmapped batched _select_ring on the layout and on
   every crafted case (labels identical), and register_scan /
@@ -38,6 +38,7 @@ from jax.experimental import pallas as pl
 import np_loam
 from vloam_tpu.config import ScanRegistrationConfig, tiny_test_profile
 from vloam_tpu.data import synthetic
+from vloam_tpu.lidar import loam_step as jls
 from vloam_tpu.lidar import scan_registration as jsr
 from vloam_tpu_torch.lidar import scan_registration as tsr
 from vloam_tpu_torch.tools import kernel_cases
@@ -67,21 +68,11 @@ def frame():
     return img, pts, elev
 
 
-@jax.jit
-def _jax_dirs(elev):
-    S = elev.shape[0]
-    az = -jnp.linspace(0.0, 2.0 * jnp.pi, N_AZ, endpoint=False)
-    ce, se = jnp.cos(elev), jnp.sin(elev)
-    ca, sa = jnp.cos(az), jnp.sin(az)
-    return jnp.stack([ce[:, None] * ca[None, :], ce[:, None] * sa[None, :],
-                      jnp.broadcast_to(se[:, None], (S, N_AZ))], axis=-1)
-
-
 @pytest.fixture(scope="module")
 def layout(frame):
     """Real per-ring layout (pts, curv, bf, counts) of one polar frame."""
     img, _, elev = frame
-    dirs = _t(np.asarray(_jax_dirs(jnp.asarray(elev))))
+    dirs = tsr.polar_directions(elev, N_AZ, "cpu")
     pts, _, counts = tsr.polar_layout(_t(img.astype(np.int32)), dirs,
                                       CFG.lidar)
     curv = tsr._curvature(pts)
@@ -223,12 +214,14 @@ def test_register_scan_matches_jax(frame):
 
 def test_register_scan_polar_matches_jax(frame):
     img, _, elev = frame
-    dirs_j = np.asarray(_jax_dirs(jnp.asarray(elev)))
-    np.testing.assert_allclose(
-        tsr.polar_directions(_t(elev), N_AZ).numpy(), dirs_j, atol=1e-6)
+    dirs = tsr.polar_directions(elev, N_AZ, "cpu")
+    unit = jnp.ones((elev.shape[0], N_AZ), jnp.uint16)  # the JAX table
+    np.testing.assert_array_equal(
+        dirs.numpy(), np.asarray(jax.jit(jls.polar_to_xyz, static_argnums=2)(
+            unit, jnp.asarray(elev), 1.0)).reshape(dirs.shape))
     fj = jsr.register_scan_polar(jnp.asarray(img), jnp.asarray(elev),
                                  CFG.lidar, CFG.scanreg)
-    ft = tsr.register_scan_polar(_t(img.astype(np.int32)), _t(dirs_j),
+    ft = tsr.register_scan_polar(_t(img.astype(np.int32)), dirs,
                                  CFG.lidar, CFG.scanreg)
     _assert_features_equal(ft, fj)
 
@@ -269,9 +262,9 @@ def test_register_scan_batched_matches_jax(frame):
     ft = tsr.register_scan(_t(padded), n, CFG.lidar, cfg)
     assert ft.sharp.mask.sum() > 20 and ft.flat.mask.sum() > 20
     _assert_features_equal(ft, fj)
-    dirs_j = np.asarray(_jax_dirs(jnp.asarray(elev)))
     fj = jsr.register_scan_polar(jnp.asarray(img), jnp.asarray(elev),
                                  CFG.lidar, cfg)
-    ft = tsr.register_scan_polar(_t(img.astype(np.int32)), _t(dirs_j),
+    ft = tsr.register_scan_polar(_t(img.astype(np.int32)),
+                                 tsr.polar_directions(elev, N_AZ, "cpu"),
                                  CFG.lidar, cfg)
     _assert_features_equal(ft, fj)

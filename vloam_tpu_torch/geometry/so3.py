@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..lidar.voxel import reciprocal_f32
+
 _EPS = 1e-12
 
 
@@ -69,7 +71,8 @@ def quat_from_axis_angle(axis_angle: torch.Tensor) -> torch.Tensor:
     half = 0.5 * theta
     # sin(x/2)/x with series fallback: 0.5 - theta^2/48 for tiny angles.
     small = theta2 < 1e-8
-    k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
+    k = torch.where(small, 0.5 - theta2 * reciprocal_f32(48.0),
+                    torch.sin(half) / theta)
     w = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
     return torch.cat([axis_angle * k, w], dim=-1)
 
@@ -93,8 +96,9 @@ def _rodrigues_coeffs(axis_angle: torch.Tensor):
     theta2 = torch.sum(axis_angle * axis_angle, dim=-1, keepdim=True)
     theta = torch.sqrt(torch.clamp(theta2, min=_EPS))
     small = theta2 < 1e-8
-    s = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    c1 = torch.where(small, 0.5 - theta2 / 24.0,
+    s = torch.where(small, 1.0 - theta2 * reciprocal_f32(6.0),
+                    torch.sin(theta) / theta)
+    c1 = torch.where(small, 0.5 - theta2 * reciprocal_f32(24.0),
                      (1.0 - torch.cos(theta)) / theta2)
     return s, c1
 

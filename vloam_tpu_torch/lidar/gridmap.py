@@ -37,7 +37,8 @@ import torch
 from .. import kernels
 from .knn import dist_key, key_dist, smallest_keys
 from .ring_assoc import sq_dist
-from .voxel import as_u32, hash_avalanche, reciprocal_f32, _mul32
+from .voxel import (_cell_of, _mul32, as_u32, hash_avalanche,
+                    reciprocal_f32)
 
 SENTINEL = 1.0e6
 
@@ -83,12 +84,6 @@ def grid_create(n_buckets: int, cap: int, device) -> FeatureGrid:
                        device=device),
         n_live=torch.zeros((), dtype=torch.int32, device=device),
     )
-
-
-def _cell_of(p: torch.Tensor, cell: float) -> torch.Tensor:
-    """int32 floor of p / cell, rounded as the reference rounds it (also the
-    insert's voxel index at the map resolution)."""
-    return torch.floor(p * reciprocal_f32(cell)).to(torch.int32)
 
 
 def _bucket_of(p: torch.Tensor, cell: float, n_buckets: int) -> torch.Tensor:

@@ -32,8 +32,9 @@ from .batch_mapping import BatchGridMap, batch_map_evict, batch_solve_mapping
 from .mapping import GridMap, export_map_points, solve_mapping
 from .odometry import solve_lo
 from .ring_assoc import RingSlab
-from .scan_registration import (azimuths, polar_directions, ray_directions,
-                                register_scan, register_scan_polar)
+from .scan_registration import (azimuth_angles, polar_directions,
+                                ray_directions, register_scan,
+                                register_scan_polar)
 from .voxel import voxel_downsample
 
 OUT_DIM = 24  # packed per-frame output row
@@ -316,8 +317,8 @@ def _polar_dirs(cfg, n_azimuth: int, elevations_deg, device) -> torch.Tensor:
     """Unit ray directions [S, A, 3] of a range image's cells."""
     ed = (elevations_deg if elevations_deg is not None
           else hdl64_elevations(cfg.lidar.n_scans))
-    elev = torch.tensor(np.radians(ed), dtype=torch.float32, device=device)
-    return polar_directions(elev, n_azimuth)
+    return polar_directions(np.radians(ed).astype(np.float32), n_azimuth,
+                            device)
 
 
 def _upload(x: np.ndarray, device) -> torch.Tensor:
@@ -766,22 +767,24 @@ class BatchLoamEngine:
         return torch.cat(self._outs, dim=1).cpu().numpy()
 
 
-def polar_to_xyz_cols(ranges: torch.Tensor, elev_rad: torch.Tensor,
-                      az: torch.Tensor, scale: float) -> torch.Tensor:
+def polar_to_xyz_cols(ranges: torch.Tensor, elev_rad, az,
+                      scale: float) -> torch.Tensor:
     """Decode a (possibly column-subset) quantized range image [S, A'] with
     explicit per-column azimuths az [A'] into sensor-frame points
-    [S*A', 3]. Invalid rays (range 0) decode to the origin."""
+    [S*A', 3]; elev_rad and az are tensors or arrays (ray_directions).
+    Invalid rays (range 0) decode to the origin."""
     S, A = ranges.shape
     r = ranges.to(torch.float32) * scale  # [S, A]
-    return (ray_directions(elev_rad, az) * r[..., None]).reshape(S * A, 3)
+    dirs = ray_directions(elev_rad, az, ranges.device)
+    return (dirs * r[..., None]).reshape(S * A, 3)
 
 
-def polar_to_xyz(ranges: torch.Tensor, elev_rad: torch.Tensor,
+def polar_to_xyz(ranges: torch.Tensor, elev_rad,
                  scale: float) -> torch.Tensor:
     """Decode a quantized range image [S, A] (0 = no return) into
     sensor-frame points [S*A, 3], ring-major."""
     return polar_to_xyz_cols(ranges, elev_rad,
-                             azimuths(ranges.shape[1], ranges.device), scale)
+                             azimuth_angles(ranges.shape[1]), scale)
 
 
 def pack12(img: np.ndarray) -> np.ndarray:

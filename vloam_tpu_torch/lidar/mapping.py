@@ -32,7 +32,7 @@ from ..solver.lm import ResidualFamily, lm_solve
 from .gridmap import (FeatureGrid, grid_create, grid_evict, grid_export,
                       grid_gather_pair, grid_insert, knn_among_planar)
 from .types import FeatureCloud
-from .voxel import voxel_downsample
+from .voxel import _cell_of, reciprocal_f32, voxel_downsample
 
 _EPS = 1e-9
 
@@ -57,7 +57,7 @@ class GridMap(NamedTuple):
 def _cube_coord(p: torch.Tensor, cube_size: float) -> torch.Tensor:
     """World point -> integer cube coordinate (reference :207-216,:643-652:
     int((x+25)/50) with negative correction == floor)."""
-    return torch.floor((p + cube_size / 2.0) / cube_size).to(torch.int32)
+    return _cell_of(p + cube_size / 2.0, cube_size)
 
 
 def window_half_extent(cfg, device) -> torch.Tensor:
@@ -97,7 +97,7 @@ def corner_geometry(stack_mask, d, near, cfg):
     ok = stack_mask & (d[:, cfg.knn - 1] < cfg.neighbor_radius_sq)
     center_p = torch.mean(near, dim=2)  # [3, Q]
     dm = near - center_p[:, :, None]
-    cov = _gram(dm) / cfg.knn
+    cov = _gram(dm) * reciprocal_f32(cfg.knn)
     lams = eigvals_sym3(cov)
     is_line = lams[:, 2] > cfg.eigen_ratio * lams[:, 1]
     u = principal_eigenvector(cov, lams[:, 2])

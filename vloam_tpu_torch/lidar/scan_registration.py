@@ -23,6 +23,9 @@ Every sort whose keys can repeat is stable, as JAX's sorts are.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 import math
 
 import numpy as np
@@ -31,7 +34,8 @@ import torch
 from .. import kernels
 from ..lidar.ring_assoc import SENTINEL, RingSlab
 from .types import FeatureCloud, ScanFeatures
-from .voxel import blocked_cumsum, voxel_downsample_rows_slab
+from .voxel import (blocked_cumsum, reciprocal_f32,
+                    voxel_downsample_rows_slab)
 
 _2PI = 2.0 * math.pi
 _IBIG = 2**30
@@ -385,31 +389,64 @@ def register_scan(xyz: torch.Tensor, n_points, profile, cfg) -> ScanFeatures:
     return _features_from_layout(pts, rt, counts, cfg)
 
 
-def azimuths(n_azimuth: int, device) -> torch.Tensor:
-    """Column azimuths -linspace(0, 2 pi, A, endpoint=False) in float32,
-    computed as i * (2 pi / A) — the rounding of the JAX reference's
-    linspace on the same A."""
-    step = float(np.float32(_2PI) / np.float32(n_azimuth))  # an f32 value
-    return -(torch.arange(n_azimuth, dtype=torch.float32, device=device)
-             * step)
+@functools.cache
+def _libm():
+    """The C library's math functions, float32 cosf / sinf typed."""
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("cosf", "sinf"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    return lib
 
 
-def ray_directions(elev_rad: torch.Tensor, az: torch.Tensor) -> torch.Tensor:
+def _cos_sin_f32(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """float32 cos and sin of float32 x by the C library's cosf / sinf, the
+    functions XLA's CPU code calls for the reference's jnp.cos / jnp.sin:
+    torch's and numpy's float32 cos / sin differ from them by an ulp on a
+    few per cent of the arguments."""
+    lib, vals = _libm(), x.tolist()
+    return (np.array([lib.cosf(v) for v in vals], np.float32),
+            np.array([lib.sinf(v) for v in vals], np.float32))
+
+
+def azimuth_angles(n_azimuth: int) -> np.ndarray:
+    """Column azimuths -linspace(0, 2 pi, A, endpoint=False) as float32 on
+    the host: -(i * f32(f32(2 pi) * f32(1 / A))), XLA's fold of the
+    reference's linspace under jit (its division by A is a product by the
+    float32 reciprocal)."""
+    step = np.float32(_2PI) * np.float32(reciprocal_f32(n_azimuth))
+    return -(np.arange(n_azimuth, dtype=np.float32) * step)
+
+
+def _host_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def ray_directions(elev_rad, az, device=None) -> torch.Tensor:
     """Unit ray directions [S, A, 3] of rings at elevations elev_rad [S]
-    and columns at azimuths az [A]."""
-    S, A = elev_rad.shape[0], az.shape[0]
-    ce, se = torch.cos(elev_rad), torch.sin(elev_rad)
-    ca, sa = torch.cos(az), torch.sin(az)
-    return torch.stack([
+    and columns at azimuths az [A] (tensors or arrays). The one source of
+    the port's direction tables: built on the host with _cos_sin_f32 and
+    float32 products, so it equals the reference's table bit for bit, then
+    uploaded once to `device` (default: elev_rad's device, else the CPU)."""
+    if device is None:
+        device = (elev_rad.device if isinstance(elev_rad, torch.Tensor)
+                  else "cpu")
+    ce, se = _cos_sin_f32(_host_f32(elev_rad))
+    ca, sa = _cos_sin_f32(_host_f32(az))
+    S, A = ce.shape[0], ca.shape[0]
+    table = np.stack([
         ce[:, None] * ca[None, :],
         ce[:, None] * sa[None, :],
-        se[:, None].expand(S, A),
-    ], dim=-1)
+        np.broadcast_to(se[:, None], (S, A)),
+    ], axis=-1)
+    return torch.from_numpy(table).to(device)
 
 
-def polar_directions(elev_rad: torch.Tensor, n_azimuth: int) -> torch.Tensor:
+def polar_directions(elev_rad, n_azimuth: int, device=None) -> torch.Tensor:
     """Unit ray directions [S, A, 3] of a range image's rings x columns."""
-    return ray_directions(elev_rad, azimuths(n_azimuth, elev_rad.device))
+    return ray_directions(elev_rad, azimuth_angles(n_azimuth), device)
 
 
 def polar_layout(ranges_u16: torch.Tensor, dirs: torch.Tensor, profile,
@@ -417,14 +454,16 @@ def polar_layout(ranges_u16: torch.Tensor, dirs: torch.Tensor, profile,
     """The dense per-ring layout of a quantized range image [S, A] (0 = no
     return): (pts [S, A, 3], rel_time [S, A], counts [S] int32). The image
     IS the layout (row = ring, column order = firing order, rel_time =
-    column/A), so the xyz path's ring assignment, azimuth unwrap and global
-    sort collapse into one stable per-row compaction of valid returns."""
+    column * f32(1 / A), the reference's column / A as XLA rounds it), so
+    the xyz path's ring assignment, azimuth unwrap and global sort
+    collapse into one stable per-row compaction of valid returns."""
     S, A = ranges_u16.shape
     dev = ranges_u16.device
     r = ranges_u16.to(torch.float32) * scale
     valid = r >= profile.minimum_range  # also rejects r == 0 (no return)
     xyz = dirs * r[..., None]  # [S, A, 3]
-    rel = (torch.arange(A, dtype=torch.float32, device=dev) / A)[None, :]
+    rel = (torch.arange(A, dtype=torch.float32, device=dev)
+           * reciprocal_f32(A))[None, :]
 
     col = torch.arange(A, device=dev)[None, :]
     key = torch.where(valid, col, A)

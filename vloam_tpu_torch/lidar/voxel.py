@@ -33,6 +33,12 @@ def reciprocal_f32(x: float) -> float:
     return float(np.float32(1.0) / np.float32(x))
 
 
+def _cell_of(p: torch.Tensor, cell: float) -> torch.Tensor:
+    """int32 floor of p / cell, rounded as the reference rounds it: a voxel
+    filter's cell, a map cell, the insert's voxel index."""
+    return torch.floor(p * reciprocal_f32(cell)).to(torch.int32)
+
+
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     """(a * c) mod 2^32 for int64 a in [0, 2^32) and a 32-bit constant c,
     without any intermediate reaching 2^63."""
@@ -163,7 +169,7 @@ def voxel_downsample(xyz: torch.Tensor, mask: torch.Tensor, leaf: float,
     n = xyz.shape[0]
     part = (torch.zeros((n,), dtype=torch.int32, device=xyz.device)
             if partition is None else partition)
-    cell = torch.floor(xyz / leaf).to(torch.int32)
+    cell = _cell_of(xyz, leaf)
     h = _hash_cells(cell[:, 0], cell[:, 1], cell[:, 2], part)
     h = torch.where(mask, h, _M32)  # invalid points sort to the tail
 
@@ -198,7 +204,7 @@ def voxel_downsample_rows_slab(pts: torch.Tensor, mask: torch.Tensor,
     S, R = pts.shape[0], pts.shape[1]
     part = torch.arange(S, dtype=torch.int32,
                         device=pts.device)[:, None].expand(S, R)
-    cell = torch.floor(pts / leaf).to(torch.int32)
+    cell = _cell_of(pts, leaf)
     h = _hash_cells(cell[..., 0], cell[..., 1], cell[..., 2], part)
     h = torch.where(mask, h, _M32)
 

@@ -34,6 +34,7 @@ from ..geometry import so3
 from ..lidar.loam_step import engine_device
 from ..lidar.odometry import solve_lo
 from ..lidar.scan_registration import register_scan_polar
+from ..lidar.voxel import reciprocal_f32
 from ..vision import features
 from ..vision.depth_map import build_depth_grid, query_depth
 from ..vision.vo import solve_vo
@@ -81,7 +82,8 @@ def seed_stage(st: VisionLoState, image_u8, ext):
     the image as float: (initialized, a_seed, t_seed, img)."""
     initialized = st.frame_idx > 0
     a_seed, t_seed = _seed_from_lo_f2f(st.q_f2f, st.t_f2f, ext)
-    return initialized, a_seed, t_seed, image_u8.to(torch.float32) / 255.0
+    return (initialized, a_seed, t_seed,
+            image_u8.to(torch.float32) * reciprocal_f32(255.0))
 
 
 def depth_grid_stage(grid_scan, n_rays: int, ext, vo):
@@ -228,7 +230,8 @@ def _vision_section(table, cfg, dev, n_az, n_workers):
     img_u8 = camera_images([T], vo.img_width, vo.img_height, n_workers)[0]
     scan_np = xyz_frames([T], [1], S, n_az, cfg.lidar.max_points)[0]
     _, ext, _ = engine_parts(cfg, n_az, dev)
-    img = torch.from_numpy(img_u8).to(dev).to(torch.float32) / 255.0
+    img = (torch.from_numpy(img_u8).to(dev).to(torch.float32)
+           * reciprocal_f32(255.0))
     scan = torch.from_numpy(scan_np).to(dev)
     mask = torch.arange(scan.shape[0], device=dev) < n_points(scan_np)
     table.section(("scripts/profile_vision_stages.py",),

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..lidar.ring_assoc import first_argmin
-from ..lidar.voxel import blocked_cumsum
+from ..lidar.voxel import blocked_cumsum, reciprocal_f32
 from .optical_flow import mean_pool2
 
 
@@ -129,8 +129,8 @@ def clahe(img: torch.Tensor, clip_limit: float = 2.0, tiles: tuple = (8, 8),
     # bilinear interpolation between tile centres
     yy = torch.arange(h, dtype=torch.float32, device=dev)
     xx = torch.arange(w, dtype=torch.float32, device=dev)
-    fy = torch.clamp((yy - th / 2.0) / th, 0.0, ty - 1.0)
-    fx = torch.clamp((xx - tw / 2.0) / tw, 0.0, tx - 1.0)
+    fy = torch.clamp((yy - th / 2.0) * reciprocal_f32(th), 0.0, ty - 1.0)
+    fx = torch.clamp((xx - tw / 2.0) * reciprocal_f32(tw), 0.0, tx - 1.0)
     y0 = (torch.clamp(torch.floor(fy).to(torch.int64), 0, ty - 2) if ty > 1
           else torch.zeros_like(fy, dtype=torch.int64))
     x0 = (torch.clamp(torch.floor(fx).to(torch.int64), 0, tx - 2) if tx > 1
@@ -427,7 +427,7 @@ def zncc_describe_plain(img: torch.Tensor, xy: torch.Tensor,
     idx = ((y0[:, None, None] + offs[None, :, None]) * W
            + x0[:, None, None] + offs[None, None, :]).reshape(-1, p * p)
     patch = img.reshape(-1)[idx]
-    wp = patch - torch.sum(patch, dim=1, keepdim=True) / (p * p)
+    wp = patch - torch.sum(patch, dim=1, keepdim=True) * reciprocal_f32(p * p)
     n = torch.sqrt(torch.sum(wp * wp, dim=1, keepdim=True))
     return torch.where(n < 1e-3, 0.0, wp / torch.clamp(n, min=1e-6))
 

@@ -44,7 +44,7 @@ from .lidar.odometry import solve_lo
 from .lidar.ring_assoc import RingSlab
 from .lidar.scan_registration import (polar_directions, ray_directions,
                                       register_scan, register_scan_polar)
-from .lidar.voxel import voxel_downsample
+from .lidar.voxel import reciprocal_f32, voxel_downsample
 from .vision import features
 from .vision.depth_map import DepthGrid, build_depth_grid, grid_shape
 from .vision.optical_flow import lk_flow
@@ -178,7 +178,7 @@ def _vision_frame_core(vstate: VisionState, scan, n_pts, image_u8, a_seed,
     prior_q, prior_t, vo_ok, vo_out [9])."""
     vo = cfg.vo
     dev = image_u8.device
-    img = image_u8.to(torch.float32) / 255.0
+    img = image_u8.to(torch.float32) * reciprocal_f32(255.0)
     if vo.clahe:
         img = features.clahe(img)
     xy, score, kp_mask = features.detect_keypoints(img, vo)
@@ -327,21 +327,22 @@ class PolarGeometry(NamedTuple):
     half: int  # the first and last `half` columns; 0 = all columns
 
     @staticmethod
-    def create(elev_rad: torch.Tensor, n_azimuth: int,
-               fov_fraction: float) -> "PolarGeometry":
+    def create(elev_rad, n_azimuth: int, fov_fraction: float,
+               device=None) -> "PolarGeometry":
+        """Both tables from scan_registration.ray_directions (elev_rad [S]
+        a tensor or an array; device as ray_directions takes it)."""
         A = n_azimuth
         frac = min(max(fov_fraction, 0.0), 1.0)
         half = min(A, max(1, int(round(A * frac / 2.0))))
-        # the JAX combined engine's azimuths, i * f32(2 pi / A): its step is
-        # an ulp off scan_registration.azimuths' f32 quotient at A = 1800
-        az = -(torch.arange(A, dtype=torch.float32, device=elev_rad.device)
-               * (2.0 * math.pi / A))
+        # the JAX combined engine's azimuths, -(i * f32(2 pi / A)): its step
+        # is an ulp off scan_registration.azimuth_angles' at some widths
+        az = -(np.arange(A, dtype=np.float32) * np.float32(2.0 * math.pi / A))
         if 2 * half < A:
-            az = torch.cat([az[:half], az[A - half:]])
+            az = np.concatenate([az[:half], az[A - half:]])
         else:
             half = 0
-        return PolarGeometry(polar_directions(elev_rad, A),
-                             ray_directions(elev_rad, az), half)
+        return PolarGeometry(polar_directions(elev_rad, A, device),
+                             ray_directions(elev_rad, az, device), half)
 
     def fov_columns(self, r_img: torch.Tensor) -> torch.Tensor:
         if self.half == 0:
@@ -543,10 +544,9 @@ class VloamEngine:
         if self._geom is None:
             ed = (elevations_deg if elevations_deg is not None
                   else hdl64_elevations(self.cfg.lidar.n_scans))
-            elev = torch.tensor(np.radians(ed), dtype=torch.float32,
-                                device=self.device)
             self._geom = PolarGeometry.create(
-                elev, range_img.shape[1], self.cfg.vo.polar_fov_fraction)
+                np.radians(ed).astype(np.float32), range_img.shape[1],
+                self.cfg.vo.polar_fov_fraction, self.device)
         self._polar_scale = range_scale
         self._polar.append(pack12(range_img) if self.pack12 else range_img)
         self._imgs.append(_fit_image(_to_u8(image), self.cfg.vo))
