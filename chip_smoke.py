@@ -57,6 +57,14 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      timed frames' operations and bytes a frame, their bound on an H100 and
      the share of it the phase's frames/s reaches (it fails on a count that
      is not positive or a share over 1)
+  EIG. the mapping's closed-form eig3 (solver/eig3.py) on 4 x 5000 seeded
+     covariances (kernel_cases.eig3_covariances: near-planar, line-like at
+     5 m and 0.5 m, isotropic; centred 0-80 m out), card against CPU: the
+     line decision (kitti_hdl64's eigen_ratio) identical, the principal
+     direction within 1e-4 on the line rows, both devices' eigenvalues
+     within 2.5e-4 of the spectrum's scale of LAPACK's in float64; eig3's
+     divisions by 3 and 6 on the card bit for bit the CPU's true divisions;
+     the eigenvalues that differ bit for bit card vs CPU printed
   6. the first 6 frames again on the CPU (plain versions): trajectories agree
   7. K3 zncc_describe vs its plain version on keypoints of rendered frames
      plus crafted rows (image corners, a constant patch), p = 24 and 16, and
@@ -85,7 +93,7 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      row_gather vs table[idx] (bit-identical) and torch.index_select on the
      two insert gathers of each of those frames (2048 and 6144 rows, 4x in
      the batch) and at [2^17, 96] x 65536 random
-  P. pack12 on the card: the first 8 range images of phases 5 and 8 and
+  P. pack12 on the card: the first 4 range images of phases 5 and 8 and
      of phase 10's 4 streams requantized to 3 cm (round(r x 0.005 / 0.03),
      clipped at 4095), through LoamEngine, VloamEngine and BatchLoamEngine
      at chunk 4 with pack12 on and off: rows identical, each hand kernel's
@@ -100,7 +108,9 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      (the LO association: ring_min1_packed, 4 launches a frame),
      with the device time per launch of each hand-written kernel there (K3's
      in VloamEngine: the L2 the engine leaves it); printed, not gated: the
-     profiler can lose records
+     profiler can lose records. The smoke's one pass that traces the
+     device: it records the device's activity and the runtime's calls, no
+     host operator (tests/test_torch_loam_engine.py holds the smoke to it)
   T. the stage profilers (vloam_tpu_torch.tools.profile_stages,
      profile_vision_stages, profile_batch_stages) at full width, one host
      call and 5 graph replays a stage, chunks of 1, on the drive's first
@@ -132,7 +142,8 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         the rows equal phase 5's uninterrupted run's
      d. close_loops on 14b's MO trajectory twice on the card (identical)
         and once on the CPU (within 1e-3 m / 1e-3 rad), within 1 m of MO;
-        loops accepted, time and launches printed
+        loops accepted, time and launches printed (the second card run's
+        launches counted by a host-only torch.profiler)
   15. the host engine (vloam_tpu_torch.pipeline.run_sequence, the per-stage
      classes, --engine host) and the vision options:
      a. run_sequence(kitti_hdl64 with detach_VO_LO=False) on the card over
@@ -144,12 +155,12 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      c. lk_flow at full width (2048 keypoints, window 15, 3 levels, 10
         iterations) on one frame pair, card against CPU (status on >= 99%,
         xy1 within 0.01 px on >= 99%); VloamEngine over the drive with
-        optical_flow_match and with lowtex_fallback: no host sync in frames
-        8-31, MO < 0.15 m, launches a frame beside the default path's
-     d. python -m vloam_tpu_torch run --synthetic 12 --mode combined
+        optical_flow_match and with lowtex_fallback at chunk 4: no host
+        sync in frames 8-31, MO < 0.15 m, frames/s beside phase 8's
+     d. python -m vloam_tpu_torch run --synthetic 4 --mode combined
         --engine host --viz DIR with no --device, and with --optical-flow,
-        side by side: match (flow) and depth PNGs, the timing summary and
-        the kernel launches they print
+        side by side: match (flow) and depth PNGs (frame 1), the timing
+        summary and the kernel launches they print
   V. the other VO options and the batched sector selection, at full width:
      1. detect_keypoints with the fast, orb, brisk, sift and akaze
         detectors on frame 0's image, card against CPU: masks equal, >= 99%
@@ -161,18 +172,16 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      2. orb_describe of frame 0's 2048 keypoint rows, card against CPU (>=
         99.9% of bits equal); match_descriptors with matcher="flann"
         against "bf" on the card: idx and valid identical
-     3. VloamEngine over the first 16 frames with (a) ORB detector, ORB
-        descriptors and FLANN, (b) the SIFT detector: finite rows, MO error
-        < 0.15 m, 0 host syncs in frames 8-15, launches and device time a
-        frame under torch.profiler (frames 4-7), each hand-written kernel's
-        launches (K3 0 in (a)), beside the default options driven the same
-        way
-     4. LoamEngine with strict_sector_order=False over the first 16 frames:
-        K1 0 launches, frames/s and launches a frame beside the strict
-        engine's driven the same way, labels
-        per frame that differ from the strict selection, 0 host syncs, MO
-        error < 0.15 m, the first 6 frames on the CPU within phase 6's
-        bounds
+     3. VloamEngine over the first 16 frames at chunk 4 with (a) ORB
+        detector, ORB descriptors and FLANN, (b) the SIFT detector: finite
+        rows, MO error < 0.15 m, 0 host syncs in frames 8-15, each
+        hand-written kernel's launches (K3 0 in (a)); frames/s beside phase
+        8's default options
+     4. LoamEngine with strict_sector_order=False over the first 16 frames
+        at chunk 4: K1 0 launches, frames/s beside phase 5's strict engine,
+        labels per frame that differ from the strict selection, 0 host
+        syncs, MO error < 0.15 m, the first 6 frames on the CPU within phase
+        6's bounds
      5. essential-matrix RANSAC on 2048 synthetic correspondences with 30%
         outliers, one set of 256 minimal samples drawn from a seeded CPU
         generator: inlier masks identical card vs CPU, R within 1e-3 rad
@@ -184,8 +193,9 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         peak active map rows within the window, 0 host syncs in the timed
         frames, K1 / ring_min1_packed / row_gather / masked_knn launched and
         grid_probe not, masked_knn 4 times a frame (2 rounds x 2 grids) in
-        the timed frames; frames/s, launches and device time a frame
-        (torch.profiler); the MO difference from phase 5 frame by frame
+        the timed frames; frames/s, launches a frame (a chunk of 4 on
+        another engine, counted by a host-only torch.profiler); the MO
+        difference from phase 5 frame by frame
      1. the windows of M2's final map (_window_block: 4096 rows gathered by
         row_gather from each grid's [2^17, W] block) bit-identical to the
         plain gather's on the CPU; masked_knn (kernels/csrc/knn.cu) at that
@@ -203,7 +213,7 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      4. VloamEngine(mesh=<one NCCL rank>) over the first 16 frames: VO and
         LO within 1e-5 of phase 8's, MO within 0.01 m
      5. close_loops(mesh=<one NCCL rank>) on 14b's trajectory: 14d's loops,
-        poses within 1e-3 m; `python -m vloam_tpu_torch run --synthetic 12
+        poses within 1e-3 m; `python -m vloam_tpu_torch run --synthetic 4
         --mesh 1` with no --device
      S. vloam_tpu_torch.tools.model_mesh_scaling on that rank: the D = 1
         mesh chunk over 8 frames and one frame of it by stages (windows,
@@ -232,15 +242,16 @@ Phases (one line each; any failure ends the run with a nonzero exit):
         0.885 % and ATE rmse <= 4.90 m (1.5x the JAX package's, RESULTS.md),
         0 degraded frames; crossings, each map grid's live slots and full
         buckets at the end, frames/s
-  B. vloam_tpu_torch.tools.bench (the port's bench.py) at 16 frames a
-     window, its batch part (scripts/bench_extras.py's streams, uint16 at
-     5 mm and pack12 at 3 cm) on 4 streams at chunk 4 and 4 lockstep frames
-     a window: its line parses, with bench.py's keys (the roofline keys
-     among them, a share in (0, 1]) and the port's (the batch keys among
-     them, both modes' rates > 0), finite numbers and the card's name
+  B. vloam_tpu_torch.tools.bench (the port's bench.py), one window of 16
+     frames (of 8 combined frames), its batch part (scripts/bench_extras.py's
+     streams, uint16 at 5 mm and pack12 at 3 cm) on 4 streams at chunk 4,
+     one window of 4 lockstep frames: its line parses, with bench.py's keys
+     (the roofline keys among them, a share in (0, 1]) and the port's (the
+     batch keys among them, both modes' rates > 0), finite numbers and the
+     card's name
   U. vloam_tpu_torch.tools.profile_upload_overlap: the polar chunk staged
      four ways (one upload a chunk or a frame, with and without pack12), one
-     turn of 2 timed chunks of 16: rows identical across the modes;
+     turn of 1 timed chunk of 16: rows identical across the modes;
      frames/s, host enqueue and the copies' device ms a frame
   DV. vloam_tpu_torch.tools.diag_vo's main entry, base variant, over the
      first 4 pairs of the 100-frame drive on the card and on the CPU:
@@ -254,10 +265,10 @@ Phases (one line each; any failure ends the run with a nonzero exit):
      version at scripts/bench_knn.py's four shapes (16384 x 307200 down to
      1024 x 8192), bit for bit on the first 1024 queries of each; the bound
      and the issue floor over every slot and over the live pairs
-The frames of U, DV, L2, MS and the accuracy phases are rendered by a
-`chip_smoke.py prerender` process (6 workers) started after phase 11,
-beside the phases that follow; the smoke waits for it after M5 and ends
-its process group on exit. Every phase prints its seconds ([time])
+The frames of U, DV, L2, MS, the accuracy phases and B's batch streams
+are rendered by a `chip_smoke.py prerender` process (6 workers) started
+after phase 11, beside the phases that follow; the smoke waits for it after
+M5 and ends its process group on exit. Every phase prints its seconds ([time])
 and a [seconds] line lists them all before [done].
 Timed phases end with the SM clock, its maximum, the power draw and the
 temperature that nvidia-smi reads just after their timed runs. Then the
@@ -306,14 +317,15 @@ BATCH_CPU = (2, 2)  # streams, lockstep frames of the card-vs-CPU check
 # tests/test_batch_engine.py), and against its own CPU run (as phase 6)
 BATCH_SINGLE_TOL = {"LO": 1e-3, "MO": 1e-2}
 BATCH_CPU_TOL = {"LO": 2e-2, "MO": 3e-2}
-PACK_FRAMES = 8  # frames (lockstep frames) of each phase-P run
+PACK_FRAMES = 4  # frames (lockstep frames: one chunk) of each phase-P run
 N_AZ = 1800
 CPU_FRAMES = 6
 IMG_W, IMG_H = 1242, 375
 VLOAM_CPU_FRAMES = 4
-# frames under torch.profiler in phases 13, 15c and M2 (after as many warm
-# frames): 4 since PR 18, whose smoke must end in 950 s (the profiler's
-# post-processing took 119 s of phase 13 and most of 15c's 137 s at 8)
+# frames (one chunk) under torch.profiler in phase 13 and counted on the
+# host in M2, after as many warm frames: the launches a frame the records
+# read are a chunk of 4's (the profiler's post-processing took 119 s of
+# phase 13 at 8)
 PROFILE_FRAMES = 4
 # phase T: host calls, graph replays and chunk frames of the stage tools
 STAGE_RUNS, STAGE_REPLAYS, STAGE_CHUNK = 1, 5, 1
@@ -808,6 +820,10 @@ def assoc_phase(shapes) -> dict:
     return launches
 
 
+BENCH_WINDOWS = 1  # phase B checks the line's keys, not its rates
+BENCH_BATCH_WINDOW = 4  # lockstep frames a window of B's batch part
+
+
 def bench_phase(card: str, frames, images) -> None:
     """vloam_tpu_torch.tools.bench at a few frames a window on the drive's
     frames (bench.py's drive: the same scene, trajectory and seeds), the
@@ -818,9 +834,9 @@ def bench_phase(card: str, frames, images) -> None:
 
     t0 = time.perf_counter()
     rec = json.loads(json.dumps(bench.run(
-        "cuda", window=16, windows=3, combined=(8, 8),
-        batch=(BATCH, BATCH_CHUNK, 4), n_poses=256, frames=frames[:32],
-        images=images[:16])))
+        "cuda", window=16, windows=BENCH_WINDOWS, combined=(8, 8),
+        batch=(BATCH, BATCH_CHUNK, BENCH_BATCH_WINDOW), n_poses=256,
+        frames=frames[:32], images=images[:16])))
     keys = {"metric", "value", "unit", "vs_baseline", "value_median",
             "window_rates", "window_frames", "fence_ms",
             "device_ms_per_frame", "upload_mbps", "upload_ms_per_frame",
@@ -830,9 +846,11 @@ def bench_phase(card: str, frames, images) -> None:
             "power_limit_w", "hbm_util", "flop_util", "roofline_bound",
             "batch_streams", "batch_fps", "batch_fps_median",
             "batch_pack12_fps", "batch_pack12_fps_median"}
-    print(f"[B bench] tools/bench.run at 16 frames a window, the batch "
-          f"engine's {BATCH} streams at chunk {BATCH_CHUNK} and 4 lockstep "
-          f"frames a window ({time.perf_counter() - t0:.1f} s): "
+    print(f"[B bench] tools/bench.run, {BENCH_WINDOWS} window of 16 "
+          f"frames, of 8 combined frames and of {BENCH_BATCH_WINDOW} lockstep "
+          f"frames of the batch engine's {BATCH} streams at chunk "
+          f"{BATCH_CHUNK} (streams made by the prerender) "
+          f"({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(rec)}", flush=True)
     if set(rec) != keys or rec["device"] != card or not card.startswith(
             rec["device_kind"]):
@@ -955,6 +973,91 @@ def roofline_phase(cfg, frames, fps, card) -> None:
     if not 0 < share <= 1.0:
         fail(f"the roofline share {share} is not in (0, 1]: a fault in the "
              "count")
+
+
+EIG3_N = 5000  # covariances of each kind (tests/test_torch_eig3.py's)
+# solver/eig3.py's float32 error against LAPACK in float64, as a share of
+# the spectrum's scale (its largest |eigenvalue|): tests/test_torch_eig3.py's
+# bound, 1.35x the largest measured on the CPU (1.855e-4, the jitted JAX
+# eigenvalues; the port's 1.709e-4)
+EIG3_LAPACK_SHARE = 2.5e-4
+EIG3_U_TOL = 1e-4
+
+
+def eig3_phase(cfg) -> None:
+    """EIG: the mapping's closed-form eig3 (solver/eig3.py) on the card
+    against the CPU, on kernel_cases.eig3_covariances' 4 x 5000 seeded
+    covariances: the line decision identical, the principal direction within
+    EIG3_U_TOL on the line rows, the eigenvalues of both within
+    EIG3_LAPACK_SHARE of LAPACK's; the eigenvalues that differ bit for bit
+    (CUDA's acosf / cosf are not glibc's), and eig3's divisions by 3 and 6
+    on the card bit for bit as the CPU's true divisions, where a Python
+    divisor would be a product by its float32 reciprocal."""
+    from vloam_tpu_torch.lidar.voxel import reciprocal_f32
+    from vloam_tpu_torch.solver import eig3
+    from vloam_tpu_torch.tools.kernel_cases import (EIG3_KINDS,
+                                                    eig3_covariances)
+
+    t0 = time.perf_counter()
+    ratio = cfg.mapping.eigen_ratio
+    parts, covs = [], []
+    for kind in EIG3_KINDS:
+        cov = eig3_covariances(kind, EIG3_N)
+        covs.append(cov)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            c = torch.from_numpy(cov).to(dev)
+            lams = eig3.eigvals_sym3(c)
+            u = eig3.principal_eigenvector(c, lams[:, 2])
+            out[dev] = (lams.cpu().numpy(), u.cpu().numpy())
+        ref = np.linalg.eigvalsh(cov.astype(np.float64))
+        scale = np.maximum(np.abs(ref).max(axis=1, keepdims=True), 1e-30)
+        err = {d: float((np.abs(lams - ref) / scale).max())
+               for d, (lams, _) in out.items()}
+        (lg, ug), (lc, uc) = out["cuda"], out["cpu"]
+        line = lc[:, 2] > ratio * lc[:, 1]
+        flips = int((line != (lg[:, 2] > ratio * lg[:, 1])).sum())
+        sign = np.sign(np.sum(ug * uc, axis=1, keepdims=True))
+        du = np.abs(ug * sign - uc).max(axis=1)[line]
+        du = float(du.max()) if du.size else 0.0
+        bits = int((lg.view(np.int32) != lc.view(np.int32)).sum())
+        parts.append(
+            f"{kind} {int(line.sum())} lines, {flips} decisions differ, max "
+            f"|u diff| on the lines {du:.2e}, eigenvalues vs LAPACK card "
+            f"{err['cuda']:.3e} / CPU {err['cpu']:.3e} of the scale, "
+            f"{bits} of {lg.size} differ bit for bit card vs CPU "
+            f"(max {float((np.abs(lg - lc) / scale).max()):.2e})")
+        if flips:
+            fail(f"EIG {kind}: {flips} line decisions differ card vs CPU")
+        if not du <= EIG3_U_TOL:
+            fail(f"EIG {kind}: u differs card vs CPU by {du} on a line row")
+        if not max(err.values()) <= EIG3_LAPACK_SHARE:
+            fail(f"EIG {kind}: eigenvalues {err} of the scale from LAPACK's, "
+                 f"bound {EIG3_LAPACK_SHARE}")
+    # eig3's divisors reach the card as tensors: a true division there, bit
+    # for bit the CPU's; a Python divisor would multiply by its reciprocal
+    cov = torch.from_numpy(np.concatenate(covs))
+    divs = []
+    for name, x, v, d in (
+            ("trace / 3", cov[:, 0, 0] + cov[:, 1, 1] + cov[:, 2, 2], 3.0, 0),
+            ("p2 / 6", (cov * cov).sum(dim=(1, 2)), 6.0, 1)):
+        true = x / v
+        card = (x.cuda() / eig3._divisors(torch.device("cuda", 0),
+                                           x.dtype)[d]).cpu()
+        scalar = (x.cuda() / v).cpu()
+        if not torch.equal(card.view(torch.int32), true.view(torch.int32)):
+            fail(f"EIG: eig3's {name} on the card is not the CPU's true "
+                 f"division on {int((card != true).sum())} elements")
+        product = int((scalar == x * reciprocal_f32(v)).sum())
+        divs.append(f"{name} card = CPU bit for bit on {x.numel()} (a Python "
+                    f"divisor on the card: {int((scalar != true).sum())} "
+                    f"differ, {product} equal to the product by float32(1 / "
+                    f"{v:g}))")
+    print(f"[EIG eig3 card vs CPU] {len(EIG3_KINDS)} x {EIG3_N} covariances "
+          f"(centred 0-80 m out), line test lambda2 > {ratio:g} lambda1, "
+          f"bounds u {EIG3_U_TOL:g}, LAPACK {EIG3_LAPACK_SHARE:g} of the "
+          "scale: " + "; ".join(parts) + "; divisions: " + ", ".join(divs)
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def cpu_phase(cfg, frames, res_gpu) -> None:
@@ -1654,37 +1757,66 @@ def _profile(push, first: int, n: int = PROFILE_FRAMES) -> dict:
     """torch.profiler over n frames pushed after `first` frames: per frame,
     CUDA kernel launches, device kernels, device kernel
     time, host enqueue and wall time; and the device time per launch of
-    each hand-written kernel."""
+    each hand-written kernel. Phase 13's alone: the smoke's one pass that
+    traces the device, which tests/test_torch_loam_engine.py holds it
+    to."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for k in range(first):
         push(k)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity and the runtime's calls (the launches) only: no
+    # host operator is recorded
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for k in range(first, first + n):
             push(k)
         host = time.perf_counter() - t0
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    dev = [e for e in ka if e.device_type == DeviceType.CUDA]
+    records = _records(prof)
+    dev = [(name, us) for name, device, us in records
+           if device == DeviceType.CUDA]
     per_launch = {}
-    for name in _KERNELS:
-        hits = [e for e in dev if name in e.key]
-        count = sum(e.count for e in hits)
-        if count:
-            per_launch[name] = (sum(e.self_device_time_total for e in hits)
-                                / count)
+    for kernel in _KERNELS:
+        hits = [us for name, us in dev if kernel in name]
+        if hits:
+            per_launch[kernel] = sum(hits) / len(hits)
     return {
         "kernel_us": per_launch,
-        "launches": sum(e.count for e in ka if e.key.startswith(
-            ("cudaLaunchKernel", "cuLaunchKernel"))) / n,
-        "device_kernels": sum(e.count for e in dev) / n,
-        "device_ms": sum(e.self_device_time_total for e in dev) / 1e3 / n,
+        "launches": _launch_calls(records) / n,
+        "device_kernels": len(dev) / n,
+        "device_ms": sum(us for _, us in dev) / 1e3 / n,
         "host_ms": host * 1e3 / n, "wall_ms": wall * 1e3 / n}
+
+
+def _records(prof) -> list[tuple]:
+    """A finished torch.profiler's records as it recorded them, each (name,
+    device type, us): read without its post-processing into FunctionEvents
+    (key_averages() builds their tree: 5-18 s a chunk of 4 frames of an
+    engine on an H100's host, 0.4-0.7 s this way, the same counts and
+    times); hidden records left out, as key_averages() leaves them."""
+    return [(e.name(), e.device_type(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if not getattr(e, "is_hidden_event", lambda: False)()]
+
+
+def _launch_calls(records) -> int:
+    """The kernel launch calls (cudaLaunchKernel, cuLaunchKernel) among
+    records."""
+    return sum(name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+               for name, _, _ in records)
+
+
+def _host_launches(fn) -> int:
+    """The kernel launches fn() makes, under a torch.profiler that records
+    host activity only: no device trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return _launch_calls(_records(prof))
 
 
 def profile_phase(cfg, cfg_v, frames, images, calib, streams) -> dict:
@@ -2016,7 +2148,6 @@ def host_loop_phase(cfg, frames, res) -> dict:
     on the card (identical) and once on the CPU (within the parity test's
     1e-3 m / 1e-3 rad), the poses within 1 m of MO."""
     from scipy.spatial.transform import Rotation as R
-    from torch.profiler import ProfilerActivity, profile
 
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.backend.loop_closure import (close_loops,
@@ -2038,12 +2169,8 @@ def host_loop_phase(cfg, frames, res) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        again = run("cuda")
-        torch.cuda.synchronize()
-    total = sum(e.count for e in prof.key_averages() if e.key.startswith(
-        ("cudaLaunchKernel", "cuLaunchKernel")))
+    again = {}
+    total = _host_launches(lambda: again.update(run("cuda")))
     t0 = time.perf_counter()
     cpu = run("cpu")
     dt_cpu = time.perf_counter() - t0
@@ -2058,7 +2185,8 @@ def host_loop_phase(cfg, frames, res) -> dict:
           f"trajectory (min_gap 8, radius 50): {n_cand} candidates, "
           f"{len(card['loops'])} loops accepted {card['loops']}; "
           f"{dt:.2f} s on the card (CPU {dt_cpu:.2f} s); kernel launches "
-          f"{launches}, {total} CUDA kernel launches in all (profiled run; 6 "
+          f"{launches}, {total} CUDA kernel launches in all (the second "
+          f"run, counted on the host; 6 "
           f"Gauss-Newton rounds x {cg} CG iterations); two card runs "
           + ("identical" if same else "DIFFER")
           + f"; card vs CPU max diff {dp:.2e} m, {dr:.2e} rad (loops "
@@ -2171,12 +2299,12 @@ def host_cpu_phase(cfg, host_frames, calib, res_gpu) -> None:
         fail("card and CPU trajectories of the host engine disagree")
 
 
-def flow_phase(cfg, frames, images, poses, calib, default_stats) -> None:
+def flow_phase(cfg, frames, images, poses, calib, walls) -> None:
     """15c: lk_flow at full width (2048 keypoints, window 15, 3 levels, 10
     iterations) on one frame pair, card against CPU; then VloamEngine over
-    the drive with optical_flow_match and with lowtex_fallback: launches
-    per frame under torch.profiler (frames 4-7, as phase 13) beside the
-    default path's, no host sync in frames 8-31, errors."""
+    the drive with optical_flow_match and with lowtex_fallback at chunk 4:
+    frames 0-7 warm, no host sync in frames 8-31, their frames/s beside
+    phase 8's default path's, errors."""
     import dataclasses
 
     from vloam_tpu_torch import kernels
@@ -2210,27 +2338,20 @@ def flow_phase(cfg, frames, images, poses, calib, default_stats) -> None:
         fail("lk_flow on the card and on the CPU disagree")
     for option in ("optical_flow_match", "lowtex_fallback"):
         cfg_o = cfg.replace(vo=dataclasses.replace(vo, **{option: True}))
-        eng = VloamEngine(cfg_o, calib, chunk=PROFILE_FRAMES, device="cuda")
-
-        def push(k):
-            eng.push_polar(frames[k], images[k])
-
+        eng = VloamEngine(cfg_o, calib, chunk=V_CHUNK, device="cuda")
         kernels.reset_launches()
-        prof = _profile(push, PROFILE_FRAMES)
-        host, syncs = _sync_free(push, range(2 * PROFILE_FRAMES, N_FRAMES))
+        fps, host, syncs = _v_drive(
+            lambda k: eng.push_polar(frames[k], images[k]), N_FRAMES)
         outs = eng.finish()
         launches = dict(kernels.LAUNCHES)
         if outs.shape != (N_FRAMES, 33) or not np.isfinite(outs).all():
             fail(f"{option}: outputs {outs.shape} not finite")
         err = vloam_errors(unpack_vloam_outputs(outs, calib), poses, calib)
-        print(f"[15c VloamEngine {option}=True] {prof['launches']:.0f} kernel "
-              f"launches a frame (default path "
-              f"{default_stats['launches']:.0f}), device "
-              f"{prof['device_ms']:.2f} ms (default "
-              f"{default_stats['device_ms']:.2f}), wall {prof['wall_ms']:.2f}"
-              f" ms a frame under the profiler; host enqueue "
-              f"{host * 1e3 / (N_FRAMES - 2 * PROFILE_FRAMES):.2f} ms a frame "
-              f"(frames {2 * PROFILE_FRAMES}-{N_FRAMES - 1}); hand-kernel "
+        print(f"[15c VloamEngine {option}=True] {fps:.2f} frames/s, host "
+              f"enqueue {host:.2f} ms a frame over frames {2 * V_CHUNK}-"
+              f"{N_FRAMES - 1} at chunk {V_CHUNK} (phase 8's default path "
+              f"{1e3 / walls['VloamEngine']:.2f} frames/s at chunk {CHUNK}); "
+              f"hand-kernel "
               f"launches {launches}; max err vs GT LO {err['LO']:.4f} m, MO "
               f"{err['MO']:.4f} m; VO ATE {err['VO']:.4f} m; min n32 "
               f"{err['n32']}; host syncs {len(syncs)} {clocks()}", flush=True)
@@ -2241,22 +2362,23 @@ def flow_phase(cfg, frames, images, poses, calib, default_stats) -> None:
 
 
 V_FRAMES = 16  # frames of the option engines' drives (V3, V4)
-V_CHUNK = 4  # frames 0-3 warm, 4-7 under the profiler, 8-15 timed
+V_CHUNK = 4  # frames 0-7 warm, 8-15 timed (and 15c's 8-31)
 V_DETECTORS = ("fast", "orb", "brisk", "sift", "akaze")
 V5_POINTS, V5_OUTLIERS, V5_HYP = 2048, 614, 256
 
 
 def _v_drive(push, n_frames=V_FRAMES):
-    """Frames 0-3 warm, 4-7 under torch.profiler, 8-15 timed with every host
-    sync recorded: (profile stats, frames/s and host enqueue ms of the timed
+    """Frames 0-7 warm (two chunks of V_CHUNK), 8..n_frames-1 timed with
+    every host sync recorded: (frames/s and host enqueue ms of the timed
     frames, the sync warnings)."""
-    prof = _profile(push, V_CHUNK, V_CHUNK)
+    for k in range(2 * V_CHUNK):
+        push(k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     host, syncs = _sync_free(push, range(2 * V_CHUNK, n_frames))
     torch.cuda.synchronize()
     n = n_frames - 2 * V_CHUNK
-    return prof, n / (time.perf_counter() - t0), host * 1e3 / n, syncs
+    return n / (time.perf_counter() - t0), host * 1e3 / n, syncs
 
 
 def detector_phase(vo, images, dev="cuda") -> float:
@@ -2342,17 +2464,17 @@ def orb_flann_phase(vo, images, thr, dev="cuda") -> None:
         fail("V2: ORB bits or FLANN matches disagree")
 
 
-def option_engines_phase(cfg, frames, images, poses, calib, thr) -> None:
+def option_engines_phase(cfg, frames, images, poses, calib, thr,
+                         walls) -> None:
     """V3: VloamEngine over the first 16 frames with (a) ORB detector, ORB
-    descriptors and FLANN, (b) the SIFT detector (ZNCC, BF), beside the
-    default options driven the same way."""
+    descriptors and FLANN, (b) the SIFT detector (ZNCC, BF); frames/s
+    beside phase 8's default options."""
     import dataclasses
 
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.vloam_step import VloamEngine, unpack_vloam_outputs
 
     for name, opts, k3 in (
-            ("default: shi_tomasi / zncc / bf", {}, V_FRAMES),
             ("a: orb / orb / flann", dict(detector="orb", descriptor="orb",
                                           matcher="flann",
                                           fast_threshold=thr), 0),
@@ -2360,7 +2482,7 @@ def option_engines_phase(cfg, frames, images, poses, calib, thr) -> None:
         cfg_o = cfg.replace(vo=dataclasses.replace(cfg.vo, **opts))
         eng = VloamEngine(cfg_o, calib, chunk=V_CHUNK, device="cuda")
         kernels.reset_launches()
-        prof, fps, host, syncs = _v_drive(
+        fps, host, syncs = _v_drive(
             lambda k: eng.push_polar(frames[k], images[k]))
         outs = eng.finish()
         launches = dict(kernels.LAUNCHES)
@@ -2369,11 +2491,10 @@ def option_engines_phase(cfg, frames, images, poses, calib, thr) -> None:
         err = vloam_errors(unpack_vloam_outputs(outs, calib),
                            poses[:V_FRAMES], calib)
         print(f"[V3 VloamEngine {name}] {V_FRAMES} frames: {fps:.2f} "
-              f"frames/s over frames {2 * V_CHUNK}-{V_FRAMES - 1} (host "
-              f"enqueue {host:.2f} ms/frame); {prof['launches']:.0f} kernel "
-              f"launches and {prof['device_ms']:.2f} ms of device time a "
-              f"frame under the profiler, frames {V_CHUNK}-{2 * V_CHUNK - 1}; "
-              f"hand-kernel launches {launches}; "
+              f"frames/s over frames {2 * V_CHUNK}-{V_FRAMES - 1} at chunk "
+              f"{V_CHUNK} (host enqueue {host:.2f} ms/frame; phase 8's "
+              f"default options {1e3 / walls['VloamEngine']:.2f} frames/s at "
+              f"chunk {CHUNK}); hand-kernel launches {launches}; "
               f"max err vs GT LO {err['LO']:.4f} m, MO {err['MO']:.4f} m; VO "
               f"ATE {err['VO']:.4f} m; min n32 {err['n32']}; host syncs "
               f"{len(syncs)} {clocks()}", flush=True)
@@ -2386,11 +2507,11 @@ def option_engines_phase(cfg, frames, images, poses, calib, thr) -> None:
             fail(f"V3 {name}: MO error {err['MO']} m >= 0.15 m")
 
 
-def batched_selection_phase(cfg, frames, poses) -> None:
+def batched_selection_phase(cfg, frames, poses, walls) -> None:
     """V4: LoamEngine with strict_sector_order=False over the first 16
-    frames beside the strict engine driven the same way, card against the
-    CPU over the first CPU_FRAMES; labels that differ from the strict
-    selection on each frame."""
+    frames, frames/s beside phase 5's strict engine, card against the CPU
+    over the first CPU_FRAMES; labels that differ from the strict selection
+    on each frame."""
     import dataclasses
 
     from vloam_tpu_torch import kernels
@@ -2414,13 +2535,9 @@ def batched_selection_phase(cfg, frames, poses) -> None:
         moved.append(int((strict != batched).sum()))
         total.append(int((strict != 0).sum()))
 
-    strict_eng = LoamEngine(cfg, chunk=V_CHUNK, device="cuda")
-    strict, s_fps, s_host, _ = _v_drive(
-        lambda k: strict_eng.push_polar(frames[k]))
-    strict_eng.finish()
     eng = LoamEngine(cfg_b, chunk=V_CHUNK, device="cuda")
     kernels.reset_launches()
-    prof, fps, host, syncs = _v_drive(lambda k: eng.push_polar(frames[k]))
+    fps, host, syncs = _v_drive(lambda k: eng.push_polar(frames[k]))
     outs = eng.finish()
     launches = dict(kernels.LAUNCHES)
     res = unpack_outputs(outs)
@@ -2434,13 +2551,10 @@ def batched_selection_phase(cfg, frames, poses) -> None:
     mo = float(np.abs(rc["t_w_mo"] - res["t_w_mo"][:CPU_FRAMES]).max())
     print(f"[V4 batched sector selection] LoamEngine strict_sector_order="
           f"False, {V_FRAMES} frames: {fps:.2f} frames/s over frames "
-          f"{2 * V_CHUNK}-{V_FRAMES - 1} (strict {s_fps:.2f}; host enqueue "
-          f"{host:.2f} ms/frame, strict {s_host:.2f}); "
-          f"{prof['launches']:.0f} kernel launches a frame (strict "
-          f"{strict['launches']:.0f}), device {prof['device_ms']:.2f} ms a "
-          f"frame (strict {strict['device_ms']:.2f}) under the profiler, "
-          f"frames {V_CHUNK}-{2 * V_CHUNK - 1}; hand-kernel launches "
-          f"{launches}; labels that differ "
+          f"{2 * V_CHUNK}-{V_FRAMES - 1} at chunk {V_CHUNK} (host enqueue "
+          f"{host:.2f} ms/frame; phase 5's strict engine "
+          f"{1e3 / walls['LoamEngine']:.2f} frames/s at chunk {CHUNK}); "
+          f"hand-kernel launches {launches}; labels that differ "
           f"from the strict selection per frame {moved} of {total}; MO max "
           f"err vs GT {err:.4f} m; card vs CPU over the first {CPU_FRAMES} "
           f"frames: max |t_w_lo| diff {lo:.2e} m, |t_w_mo| {mo:.2e} m; host "
@@ -2525,8 +2639,11 @@ def _popen_cli(*args) -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True)
 
 
+CLI_FRAMES = "4"  # 15d's and M5's --synthetic: --viz writes at frame 1
+
+
 def host_cli_viz_phase() -> None:
-    """15d: python -m vloam_tpu_torch run --synthetic 12 --mode combined
+    """15d: python -m vloam_tpu_torch run --synthetic 4 --mode combined
     --engine host --viz DIR with no --device, and the same with
     --optical-flow, as two subprocesses side by side: the debug PNGs, the
     timing summary and the kernel launches each prints."""
@@ -2539,8 +2656,8 @@ def host_cli_viz_phase() -> None:
         for name, extra in (("descriptors", []), ("flow", ["--optical-flow"])):
             viz = Path(tmp) / name
             runs[name] = (viz, _popen_cli(
-                "run", "--synthetic", "12", "--mode", "combined", "--engine",
-                "host", "--viz", str(viz), *extra))
+                "run", "--synthetic", CLI_FRAMES, "--mode", "combined",
+                "--engine", "host", "--viz", str(viz), *extra))
         results = {}
         try:
             for name, (viz, proc) in runs.items():
@@ -2643,10 +2760,16 @@ def mesh_engine_phase(cfg, frames, poses, outs5, mesh):
     err = float(np.linalg.norm(res["t_w_mo"] - gt, axis=1).max())
     lo, mo = _mesh_diffs(outs, outs5)
     active, cap = eng.window_active_rows
-    prof_eng = LoamEngine(cfg, chunk=PROFILE_FRAMES, mesh=mesh,
-                          mesh_window_rows=MESH_WINDOW)
-    prof = _profile(lambda k: prof_eng.push_polar(frames[k]), PROFILE_FRAMES)
-    prof_eng.finish()
+    # launches a frame as phase 13 counts them: a chunk of PROFILE_FRAMES
+    # after as many warm frames (the timed drive's chunk is 16 frames)
+    cnt_eng = LoamEngine(cfg, chunk=PROFILE_FRAMES, mesh=mesh,
+                         mesh_window_rows=MESH_WINDOW)
+    for k in range(PROFILE_FRAMES):
+        cnt_eng.push_polar(frames[k])
+    per_frame = _host_launches(lambda: [
+        cnt_eng.push_polar(frames[k])
+        for k in range(PROFILE_FRAMES, 2 * PROFILE_FRAMES)]) / PROFILE_FRAMES
+    cnt_eng.finish()
     n = N_FRAMES - CHUNK
     print(f"[M2 mesh end to end] LoamEngine(kitti_hdl64, chunk {CHUNK}, mesh "
           f"of {mesh.size} {mesh.backend} rank on {mesh.device}, "
@@ -2655,10 +2778,9 @@ def mesh_engine_phase(cfg, frames, poses, outs5, mesh):
           f"({dt * 1e3 / n:.2f} ms/frame, host enqueue "
           f"{host * 1e3 / n:.2f} ms/frame); launches {launches}; masked_knn "
           f"{knn_timed / n:.2f} a frame in the timed frames; "
-          f"{prof['launches']:.0f} kernel launches and "
-          f"{prof['device_ms']:.2f} ms device time a frame (torch.profiler "
-          f"over frames {PROFILE_FRAMES}-{2 * PROFILE_FRAMES - 1}, wall "
-          f"{prof['wall_ms']:.2f} ms); peak active map rows {active} of the "
+          f"{per_frame:.0f} kernel launches a frame (counted on the host over "
+          f"frames {PROFILE_FRAMES}-{2 * PROFILE_FRAMES - 1} at chunk "
+          f"{PROFILE_FRAMES}); peak active map rows {active} of the "
           f"window's {cap}; against phase 5: LO rows max |diff| {lo:.3g}, MO "
           f"max diff {mo:.4f} m (frame by frame, mm: "
           f"{' '.join(f'{g * 1e3:.2f}' for g in _mo_gaps(outs, outs5))}); "
@@ -2695,8 +2817,6 @@ def mesh_knn_phase(cfg, eng, frame, mo_row, per_pair) -> dict:
     bound and the issue floor at per_pair (phase 2) instructions a pair over
     every slot and over the live pairs. Returns the kernels line's row at
     the corner window, its bound over the live pairs."""
-    from torch.profiler import ProfilerActivity, profile
-
     from vloam_tpu_torch import kernels
     from vloam_tpu_torch.data.synthetic import hdl64_elevations
     from vloam_tpu_torch.geometry import so3
@@ -2707,12 +2827,6 @@ def mesh_knn_phase(cfg, eng, frame, mo_row, per_pair) -> dict:
     from vloam_tpu_torch.parallel.mesh_fused import _window_block
     from vloam_tpu_torch.tools.timing import (device_ms, knn_bound,
                                               knn_issue_floor)
-
-    def device_launches(fn) -> int:
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            fn()
-        return sum(e.count for e in prof.key_averages() if e.key.startswith(
-            ("cudaLaunchKernel", "cuLaunchKernel")))
 
     m = cfg.mapping
     elev = torch.tensor(np.radians(hdl64_elevations(64)),
@@ -2757,8 +2871,8 @@ def mesh_knn_phase(cfg, eng, frame, mo_row, per_pair) -> dict:
         first_us = MASKED_KNN_BEFORE_US[name]
         plain_ms = device_ms(lambda: masked_knn_plain(qw, pts, mask), runs=5,
                              cold=False)
-        launches = device_launches(lambda: masked_knn(qw, pts, mask))
-        plain_launches = device_launches(
+        launches = _host_launches(lambda: masked_knn(qw, pts, mask))
+        plain_launches = _host_launches(
             lambda: masked_knn_plain(qw, pts, mask))
         bound = knn_bound(Q, C, 5)
         bound_live = knn_bound(Q, C, 5, live=live)
@@ -2931,7 +3045,7 @@ def mesh_vloam_phase(cfg_v, frames, images, calib, res_v, mesh) -> None:
 
 def mesh_loop_phase(cfg, frames, res_host, card_14d, mesh) -> None:
     """M5: close_loops(mesh=<one NCCL rank>) on 14b's trajectory against
-    14d's, then `python -m vloam_tpu_torch run --synthetic 12 --mesh 1` with
+    14d's, then `python -m vloam_tpu_torch run --synthetic 4 --mesh 1` with
     no --device."""
     from vloam_tpu_torch.backend.loop_closure import close_loops
     from vloam_tpu_torch.data.synthetic import pad_scan
@@ -2942,14 +3056,15 @@ def mesh_loop_phase(cfg, frames, res_host, card_14d, mesh) -> None:
                       mesh=mesh)
     dp = float(np.abs(got["poses"][:, 4:] - card_14d["poses"][:, 4:]).max())
     t0 = time.perf_counter()
-    out = _cli("run", "--synthetic", "12", "--mesh", "1")
+    out = _cli("run", "--synthetic", CLI_FRAMES, "--mesh", "1")
     dt = time.perf_counter() - t0
     said = [ln for ln in out.splitlines() if ln.startswith(
         ("mesh mapping", "throughput", "MO "))]
     mo = [json.loads(ln[3:]) for ln in said if ln.startswith("MO ")]
     print(f"[M5 mesh loop closure and command line] close_loops(mesh=one "
           f"rank) on 14b's MO: loops {got['loops']}, max diff from 14d's "
-          f"{dp:.3g} m; `run --synthetic 12 --mesh 1` (no --device) in "
+          f"{dp:.3g} m; `run --synthetic {CLI_FRAMES} --mesh 1` (no "
+          f"--device) in "
           f"{dt:.1f} s: {' | '.join(said)}", flush=True)
     if got["loops"] != card_14d["loops"] or not dp < 1e-3:
         fail(f"close_loops with a mesh left 14d's: {got['loops']}, {dp} m")
@@ -2965,18 +3080,19 @@ E2_FRAMES = 500  # scripts/eval_long.py's
 # ---- PR 18's phases: the last scripts' tools on the card ----
 
 PRERENDER_WORKERS = 6  # leave cores to the phases running beside it
-UPLOAD_CHUNK, UPLOAD_CHUNKS = 16, 2  # phase U: one turn of 2 timed chunks
+UPLOAD_CHUNK, UPLOAD_CHUNKS = 16, 1  # phase U: one turn of 1 timed chunk
 DV_PAIRS = 4  # phase DV: the first 4 pairs of the 100-frame drive
 
 
 def prerender_main() -> None:
-    """Make the frames of the later phases (U, DV, L2, MS, E1, E2) into the
-    temporary directory's cache, in PRERENDER_WORKERS processes: run as
-    `chip_smoke.py prerender` beside the kernel phases, so that their host
-    rendering (~90 s of E1 and E2 alone) overlaps the card's work."""
+    """Make the frames of the later phases (U, DV, L2, MS, E1, E2, B's
+    batch streams) into the temporary directory's cache, in
+    PRERENDER_WORKERS processes: run as `chip_smoke.py prerender` beside the
+    kernel phases, so that their host rendering (~90 s of E1 and E2 alone)
+    overlaps the card's work."""
     from vloam_tpu_torch.config import kitti_hdl64
     from vloam_tpu_torch.data import synthetic
-    from vloam_tpu_torch.tools import (eval_frames, model_mesh_scaling,
+    from vloam_tpu_torch.tools import (bench, eval_frames, model_mesh_scaling,
                                        profile_upload_overlap, stages)
 
     cfg = kitti_hdl64()
@@ -2992,7 +3108,10 @@ def prerender_main() -> None:
     model_mesh_scaling.drive(64, N_AZ, w)
     eval_frames.synthetic_drive(E1_FRAMES, cfg, workers=w)
     eval_frames.long_drive(E2_FRAMES, workers=w)
-    print(f"[prerender] the frames of phases U, DV, L2, MS, E1 and E2 in "
+    for pack in (False, True):
+        bench.batch_drives(BATCH, BATCH_CHUNK + BENCH_BATCH_WINDOW
+                           * BENCH_WINDOWS, cfg.lidar.n_scans, N_AZ, pack, w)
+    print(f"[prerender] the frames of phases U, DV, L2, MS, E1, E2 and B in "
           f"{time.perf_counter() - t0:.1f} s ({w} processes beside the "
           "phases)", flush=True)
 
@@ -3026,7 +3145,7 @@ def stop_prerender(proc: subprocess.Popen, wait: bool) -> None:
 def upload_phase() -> None:
     """U: tools/profile_upload_overlap's four stagings of the polar chunk
     (A one upload a chunk, B one a frame, C and D the same with pack12),
-    one turn of 2 timed chunks of 16 after a warm chunk: rows identical
+    one turn of 1 timed chunk of 16 after a warm chunk: rows identical
     across the modes; frames/s, host enqueue and the copies' device ms."""
     from vloam_tpu_torch.tools import profile_upload_overlap as upo
 
@@ -3329,6 +3448,7 @@ def run_phases(t_start, card, knn_per_pair, cfg, cfg_v, calib, frames,
     walls = {}  # the end-to-end phases' wall ms a (lockstep) frame
     res_gpu, eng, outs_gpu = timed("5", e2e_phase, cfg, frames, poses, card,
                                    walls)
+    timed("EIG", eig3_phase, cfg)
     timed("6", cpu_phase, cfg, frames, res_gpu)
     k3 = timed("7", k3_phase, cfg_v, images)
     res_v, launches_v, grid_line = timed("8", vloam_phase, cfg_v, frames,
@@ -3360,14 +3480,13 @@ def run_phases(t_start, card, knn_per_pair, cfg, cfg_v, calib, frames,
     res_he = timed("15a", host_engine_phase, cfg_v, host_frames, poses,
                    calib, res_host)
     timed("15b", host_cpu_phase, cfg_v, host_frames, calib, res_he)
-    timed("15c", flow_phase, cfg_v, frames, images, poses, calib,
-          stats13["VloamEngine"])
+    timed("15c", flow_phase, cfg_v, frames, images, poses, calib, walls)
     timed("15d", host_cli_viz_phase)
     thr = timed("V1", detector_phase, cfg_v.vo, images)
     timed("V2", orb_flann_phase, cfg_v.vo, images, thr)
     timed("V3", option_engines_phase, cfg_v, frames, images, poses, calib,
-          thr)
-    timed("V4", batched_selection_phase, cfg, frames, poses)
+          thr, walls)
+    timed("V4", batched_selection_phase, cfg, frames, poses, walls)
     timed("V5", ransac_phase)
     # the mesh: one NCCL rank on this card, in this process
     from vloam_tpu_torch.parallel.sharded import spmd_mesh

@@ -350,6 +350,28 @@ def test_chip_smoke_imports_only_the_port():
     assert (REPO / "vloam_tpu_torch/tools/profile_row_gather.py").exists()
 
 
+def test_chip_smoke_traces_the_device_in_phase_13_only():
+    """chip_smoke.py's one torch.profiler pass with device activity is
+    phase 13's (profile_phase through _profile): each such pass costs tens
+    of seconds of post-processing an engine, and the smoke must end within
+    its time limit. ProfilerActivity.CUDA appears in no function but
+    _profile, and only profile_phase calls _profile."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    tracing, callers = [], []
+    for top in tree.body:
+        name = getattr(top, "name", "<module>")
+        for n in ast.walk(top):
+            if (isinstance(n, ast.Attribute) and n.attr == "CUDA"
+                    and isinstance(n.value, ast.Name)
+                    and n.value.id == "ProfilerActivity"):
+                tracing.append(name)
+            if (isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                    and n.func.id == "_profile"):
+                callers.append(name)
+    assert tracing == ["_profile"], tracing
+    assert callers and set(callers) == {"profile_phase"}, callers
+
+
 @pytest.mark.parametrize("profile", ["kitti_hdl64", "tiny_test_profile",
                                      "reference_exact", "HDL32", "VLP16"])
 def test_port_config_equals_jax_config(profile):

@@ -3,7 +3,8 @@ select_rings (strict sector selection), K2 ring_min2 (per-ring 2-smallest),
 S1 ring_min1 (per-ring minimum) and ring_argmin2 (argmin, mask, argmin),
 ring_min1_packed (the packed-key minimum of the quantized forms), K3
 zncc_describe (patch descriptors), S2 grid_probe (the map's 8-cell probe)
-and masked_knn (the mesh chunk's window sweep). Plain numpy from a seed; no
+and masked_knn (the mesh chunk's window sweep); and the 5-point covariances
+of the mapping's line test (solver/eig3.py). Plain numpy from a seed; no
 device logic.
 
 The same cases are used three times: the CPU tests hold the plain PyTorch
@@ -772,3 +773,30 @@ def knn_cases(seed: int = 16837) -> list[KnnCase]:
     cases.append(knn_window(rng))
     cases.append(knn_window(rng, Q=6144, cap=16))
     return cases
+
+
+# the principal spreads (m) of each kind of 5-point neighbourhood whose
+# covariance the mapping's line test takes to eig3
+EIG3_KINDS = {"near_planar": (1.0, 1.0, 1e-3), "line_5m": (5.0, 0.1, 0.1),
+              "line_0.5m": (0.5, 0.01, 0.01), "isotropic": (1.0, 1.0, 1.0)}
+
+
+def eig3_covariances(kind: str, n: int, seed: int = 16838,
+                     max_range: float = 80.0) -> np.ndarray:
+    """n float32 covariances [n, 3, 3] of 5-point neighbourhoods of one of
+    EIG3_KINDS, each turned at random and centred 0..max_range m from the
+    origin, formed as mapping.corner_geometry forms them: float32 points,
+    their mean removed, the Gram matrix times float32(1 / 5). Far from the
+    origin the float32 points round the spread (the float32 trouble F5 found
+    in the plane fit)."""
+    rng = np.random.default_rng([seed, list(EIG3_KINDS).index(kind)])
+    pts = rng.normal(size=(n, 5, 3)) * np.asarray(EIG3_KINDS[kind])
+    rot, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    way = rng.normal(size=(n, 3))
+    way *= rng.uniform(0.0, max_range, (n, 1)) / np.linalg.norm(
+        way, axis=1, keepdims=True)
+    near = (np.einsum("nij,nkj->nki", rot, pts)
+            + way[:, None]).astype(np.float32)
+    dm = near - near.mean(axis=1, keepdims=True, dtype=np.float32)
+    gram = np.einsum("nki,nkj->nij", dm, dm).astype(np.float32)
+    return gram * np.float32(1.0 / 5.0)
